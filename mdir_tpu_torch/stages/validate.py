@@ -1,0 +1,33 @@
+"""validate stage: load a frozen network, run its validations, return the
+metrics -- ``mdir_tpu/stages/validate.py`` on the port. The metric dict
+``{"eval": {key: value}}`` has the JAX package's keys, e.g.
+``roxford5k/validation/score:ap_medium_avg.4``.
+"""
+import numpy as np
+
+from ..learning import load_network
+from ..learning.validation import initialize_validation
+from ..tools.events import MetricLog
+
+
+def validate(params, data, device="cuda"):
+    """Run the scenario's validations on ``device`` (the card by default)."""
+    np.random.seed(0)
+
+    if params.keys() != {"network", "validation", "data"}:
+        raise ValueError("validate takes network, validation and data, not "
+                         "%s" % sorted(params))
+    network = load_network(params["network"], device=device).eval()
+    net_defaults = network.network_params.runtime.get("data", {})
+    validation = initialize_validation(
+        params["validation"], data=data, params_data=params["data"],
+        default_criterion=None, net_defaults=net_defaults)
+
+    log = MetricLog()
+    for val, valtask in validation.validations(epoch=None):
+        def logger(iteration, size, label, value, dtype, val=val):
+            log.register(iteration, size, "%s/validation/%s" % (val, label),
+                         value, dtype)
+
+        valtask.validate(network, logger)
+    return ({"eval": log.metrics()},)

@@ -1,0 +1,58 @@
+"""The GeM+L2N CUDA kernel against its plain version, on the card.
+
+Marked ``gpu``: skipped without a card. This file imports neither JAX nor
+the JAX package, so on the card's machine it runs without the repository's
+conftest (which imports JAX):
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gem_kernel.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from mdir_tpu_torch.device import resolve_device
+from mdir_tpu_torch.ops import pooling, pooling_kernel
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return resolve_device("cuda")
+
+
+@pytest.mark.parametrize("shape", [(16, 2048, 32, 24), (16, 2048, 23, 17),
+                                   (3, 2048, 7, 9), (2, 64, 1, 33)])
+def test_kernel_matches_plain(cuda, shape):
+    rng = np.random.RandomState(0)
+    n, c, h, w = shape
+    x = torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(cuda)
+    valid = np.stack([rng.randint(1, h + 1, n), rng.randint(1, w + 1, n)], 1)
+    valid[0] = (h, w)
+    valid[-1] = (1, 1)
+    valid = torch.from_numpy(valid.astype(np.int32)).to(cuda)
+    p = torch.tensor([3.0], device=cuda)
+    before = pooling_kernel.launches
+    with torch.no_grad():
+        out = pooling_kernel.gem_l2n(x, valid, p)
+    torch.cuda.synchronize()
+    assert pooling_kernel.launches == before + 1
+    torch.testing.assert_close(out, pooling.gem_l2n_plain(x, valid, p),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_kernel_refuses_what_it_does_not_take(cuda):
+    x = torch.rand(2, 8, 4, 4, device=cuda)
+    valid = torch.full((2, 2), 4, dtype=torch.int32, device=cuda)
+    p = torch.tensor([3.0], device=cuda)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="contiguous"):
+            pooling_kernel.gem_l2n(x.transpose(2, 3), valid, p)
+        with pytest.raises(ValueError, match="int32"):
+            pooling_kernel.gem_l2n(x, valid.long(), p)
+        with pytest.raises(ValueError, match="float32"):
+            pooling_kernel.gem_l2n(x.double(), valid, p)
+    with pytest.raises(ValueError, match="eval-only"):
+        pooling_kernel.gem_l2n(x, valid, p.clone().requires_grad_())

@@ -20,7 +20,23 @@ Phases, one line each with its wall time:
      card must agree within 1e-4 with the same top-10 ranks; a small input
      must agree with the CPU run of the same network;
   5. the kernel at the main path's own shapes, and its time against its
-     plain version and its bound.
+     plain version and its bound;
+  6. the lab CLAHE chain's kernels (lab_n, clahe_tile_luts, clahe_interp)
+     against their plain versions on the card, bit-equal: lab_n on all
+     256^3 RGB triples, the CLAHE kernels on ragged buckets (non-divisible,
+     divisible, tiny and filler extents; grids 8 and 4; clips 2, 4, 40),
+     and the single-image clahe_u8 and the L-only lab_l_u8 on the same
+     kernels;
+  7. the CLAHE main path, the paper's "CLAHE N/D" eval: a VGG16-GeM
+     (512-d, random weights from a seed, p = 3, Lw whitening, scales 1,
+     2^-1/2, 1/2, image size 1024) with the transform
+     pil2np | apply_clahe:4:lab:8 | totensor | normalize on the same 40
+     images. Each CLAHE kernel must launch once per chunk and gem_l2n once
+     per chunk x scale; the run with the plain lab and CLAHE versions must
+     give a bit-equal chain output per chunk, descriptors within 1e-4 and
+     the same top-10 ranks; a small input must agree with the CPU;
+  8. the three kernels at the main path's own chunks, bit-equal to plain,
+     and their times against their plain versions and bounds.
 Then one JSON line of kernels, the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}. Any failure raises (non-zero exit, no last
 line). Without a card, or without the port beside it, it fails at once.
@@ -58,6 +74,23 @@ DB_SHAPES = [(1024, 768)] * 12 + [(1000, 750)] * 4 + [(768, 1024)] * 8 \
     + [(683, 1024)] * 8
 QUERY_SHAPES = [(900, 700)] * 4 + [(600, 800)] * 4
 TEMPLATES = 8
+CLAHE_MODEL = dict(MODEL, cir_architecture="vgg16")
+CLAHE_DIM = 512
+CLAHE_TRANSFORM = "pil2np | apply_clahe:4:lab:8 | totensor | normalize"
+LAB_SWEEP_SIDE = 4096  # one (1, 4096, 4096, 3) image holds all 256^3 RGB
+# ragged extents in one (1024, 1024) bucket: non-divisible, divisible,
+# tiny, and a filler slot of the bucket's own shape
+CLAHE_CHECK_SHAPES = [(1000, 750), (683, 1024), (1024, 768), (512, 512),
+                      (1, 1), (7, 9), (1024, 1024)]
+CLAHE_CHECK_CASES = [(2.0, 8), (4.0, 8), (40.0, 8), (4.0, 4), (40.0, 4)]
+# integer or float operations per pixel, counted from the kernels' sources:
+# lab_n 24 multiply-adds of the blend + 6 weight products + 6 for the
+# rounding; clahe_interp 8 for the two axes' coordinates, 11 for the blend,
+# 3 for rint and the clamp; clahe_tile_luts one count per padded pixel plus
+# about 10 per bin of each tile
+LAB_OPS_PER_PIXEL = 60
+INTERP_OPS_PER_PIXEL = 22
+LUT_OPS_PER_BIN = 10
 
 T0 = time.perf_counter()
 
@@ -154,6 +187,309 @@ def make_images(rng):
     return db, queries, gnd
 
 
+def lab_bound_ms(shape):
+    """Least time of lab_n on a (B, H, W, 3) uint8 input: 3 bytes read and
+    12 written per pixel plus the tables, against LAB_OPS_PER_PIXEL 32-bit
+    operations per pixel at the card's float32 rate."""
+    pixels = int(np.prod(shape[:-1]))
+    nbytes = pixels * (3 + 12) + 2 * 256 * 4 + 33 ** 3 * 3 * 2
+    ops = pixels * LAB_OPS_PER_PIXEL
+    byte_s, op_s = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
+    return 1e3 * max(byte_s, op_s), "bytes" if byte_s >= op_s else "operations"
+
+
+def aux_extents(aux):
+    """(h, w) per image of a clahe aux: the reflect maps cover 0..size-1."""
+    return list(zip((aux["row_src"].amax(1) + 1).tolist(),
+                    (aux["col_src"].amax(1) + 1).tolist()))
+
+
+def tile_luts_bound_ms(vals, aux, grid):
+    """Least time of the tile-LUT build: each image's pixels read once
+    (int32), the reflect maps and per-image scalars read, the (B, T, 256)
+    float LUTs written; one count per pixel of cv2's padded extent and
+    LUT_OPS_PER_BIN per bin of each tile."""
+    b, bh, bw = vals.shape
+    tiles = grid[0] * grid[1]
+    pixels = sum(h * w for h, w in aux_extents(aux))
+    padded = int((aux["th"] * aux["tw"]).sum()) * tiles
+    nbytes = 4 * (pixels + b * (bh + grid[0] + bw + grid[1]) + 4 * b
+                  + b * tiles * 256)
+    ops = padded + b * tiles * 256 * LUT_OPS_PER_BIN
+    byte_s, op_s = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
+    return 1e3 * max(byte_s, op_s), "bytes" if byte_s >= op_s else "operations"
+
+
+def interp_bound_ms(vals, grid):
+    """Least time of the interpolation: every bucket pixel read (int32) and
+    written (float32), the LUTs and two scalars per image read, against
+    INTERP_OPS_PER_PIXEL float operations per pixel."""
+    b, bh, bw = vals.shape
+    pixels = b * bh * bw
+    nbytes = 4 * (2 * pixels + b * grid[0] * grid[1] * 256 + 2 * b)
+    ops = pixels * INTERP_OPS_PER_PIXEL
+    byte_s, op_s = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
+    return 1e3 * max(byte_s, op_s), "bytes" if byte_s >= op_s else "operations"
+
+
+def check_equal(out, ref, what):
+    """Fail unless a kernel's output is bit-equal to its plain version's."""
+    torch.cuda.synchronize()
+    check(out.shape == ref.shape and out.dtype == ref.dtype,
+          (what, tuple(out.shape), tuple(ref.shape), out.dtype, ref.dtype))
+    check(torch.equal(out, ref),
+          (what, "not bit-equal", float((out.double() - ref.double())
+                                        .abs().max())))
+
+
+def clahe_against_plain(clahe, vals, aux, grid, what):
+    """Both CLAHE kernels against their plain versions on one bucket."""
+    luts = clahe.clahe_tile_luts(vals, aux, grid)
+    plain_luts = clahe.tile_luts_bucketed_plain(vals, aux, grid)
+    check_equal(luts, plain_luts, ("clahe_tile_luts",) + what)
+    out = clahe.clahe_interp(vals, plain_luts, aux, grid)
+    check_equal(out, clahe.clahe_interp_bucketed_plain(
+        vals, plain_luts, aux, grid), ("clahe_interp",) + what)
+
+
+def plain_clahe_kernels(clahe, lab_trilinear):
+    """Context: the chain runs the plain lab and CLAHE versions."""
+    import contextlib
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(lab_trilinear, "lab_n",
+                                          lab_trilinear.lab_n_plain))
+    stack.enter_context(mock.patch.object(
+        clahe, "clahe_tile_luts", clahe.tile_luts_bucketed_plain))
+    stack.enter_context(mock.patch.object(
+        clahe, "clahe_interp", clahe.clahe_interp_bucketed_plain))
+    return stack
+
+
+def clahe_kernel_phase(device, clahe, lab_trilinear):
+    """Phase 6: the three kernels and the two off-path wrappers against
+    their plain versions on the card."""
+    side = LAB_SWEEP_SIDE
+    v = torch.arange(256, device=device, dtype=torch.int32)
+    sweep = torch.stack(torch.meshgrid(v, v, v, indexing="ij"), -1)
+    sweep = sweep.reshape(1, side, -1, 3).to(torch.uint8).contiguous()
+    check_equal(lab_trilinear.lab_n(sweep), lab_trilinear.lab_n_plain(sweep),
+                ("lab_n", "256^3 sweep"))
+    say("kernel", "lab_n on all 256^3 RGB triples %s: bit-equal to plain"
+        % (tuple(sweep.shape),))
+    del sweep
+
+    rng = np.random.RandomState(SEED)
+    bh = max(h for h, _ in CLAHE_CHECK_SHAPES)
+    bw = max(w for _, w in CLAHE_CHECK_SHAPES)
+    vals = np.zeros((len(CLAHE_CHECK_SHAPES), bh, bw), np.int32)
+    for i, (h, w) in enumerate(CLAHE_CHECK_SHAPES):
+        vals[i, :h, :w] = rng.randint(0, 256, (h, w))
+    vals = torch.from_numpy(vals).to(device)
+    for clip, g in CLAHE_CHECK_CASES:
+        grid = (g, g)
+        aux = clahe.aux_to_device(clahe.clahe_bucket_aux(
+            CLAHE_CHECK_SHAPES, (bh, bw), clip, grid), device)
+        clahe_against_plain(clahe, vals, aux, grid, (clip, grid))
+    say("kernel", "clahe_tile_luts, clahe_interp on a (%d, %d, %d) bucket "
+        "of extents %s, (clip, grid) %s: bit-equal to plain"
+        % (len(CLAHE_CHECK_SHAPES), bh, bw, CLAHE_CHECK_SHAPES,
+           CLAHE_CHECK_CASES))
+
+    src = torch.from_numpy(rng.randint(0, 256, (683, 1000)).astype(
+        np.uint8)).to(device)
+    rgb = torch.from_numpy(rng.randint(0, 256, (4, 600, 800, 3)).astype(
+        np.uint8)).to(device)
+    out = clahe.clahe_u8(src, 4.0, (8, 8))
+    l_u8 = lab_trilinear.lab_l_u8(rgb)
+    with plain_clahe_kernels(clahe, lab_trilinear):
+        check_equal(out, clahe.clahe_u8(src, 4.0, (8, 8)), ("clahe_u8",))
+        check_equal(l_u8, lab_trilinear.lab_l_u8(rgb), ("lab_l_u8",))
+    say("kernel", "clahe_u8 (one image, static grid) and lab_l_u8 on the "
+        "same kernels: bit-equal to plain")
+
+
+def clahe_path_phase(device, db, queries, gnd, rng):
+    """Phase 7: the VGG16-GeM lab CLAHE eval path. Returns what phase 8
+    and the kernels line need."""
+    from mdir_tpu_torch import _build
+    from mdir_tpu_torch.data.transforms import initialize_transforms
+    from mdir_tpu_torch.learning.network import CirNetwork
+    from mdir_tpu_torch.models import initialize_model
+    from mdir_tpu_torch.ops import clahe, lab_trilinear, pooling_kernel
+    from mdir_tpu_torch.ops.preprocess import chain_from_transform
+    from mdir_tpu_torch.ops.ranking import compute_map, rank_database
+    from mdir_tpu_torch.parallel.extract import network_extractor
+
+    whiten_path = os.path.join(_build.BUILD_ROOT, "smoke",
+                               "whiten_vgg16_seed%d.pkl" % SEED)
+    with open(whiten_path + ".tmp", "wb") as handle:
+        pickle.dump({"P": np.eye(CLAHE_DIM)
+                     + 0.01 * rng.randn(CLAHE_DIM, CLAHE_DIM),
+                     "m": 0.01 * rng.randn(CLAHE_DIM, 1)}, handle)
+    os.replace(whiten_path + ".tmp", whiten_path)
+    runtime = {"wrappers": {"train": None, "eval": {
+        "0_cirwhiten": {"whitening": whiten_path, "dimensions": None},
+        "1_cirmultiscale": {"scales": SCALES}}}}
+    model = initialize_model(CLAHE_MODEL, device=device, seed=SEED)
+    network = CirNetwork(model, CirNetwork.NetworkParams(
+        model=dict(CLAHE_MODEL), runtime=runtime), frozen=True)
+    transform = initialize_transforms(CLAHE_TRANSFORM,
+                                      (model.meta["mean"], model.meta["std"]))
+
+    def run_path(net, images_sets, wrap_chain=None):
+        """Descriptors, ranks and chunks of the path through ``net``."""
+        out, chunks = [], 0
+        for images in images_sets:
+            extractor = network_extractor(net, transform)
+            check(extractor.device_chain is not None
+                  and extractor.host_dtype == np.uint8,
+                  "CLAHE device chain with uint8 ingress")
+            if wrap_chain is not None:
+                extractor.chain_fn = wrap_chain(extractor.chain_fn)
+            for i, img in enumerate(images):
+                extractor.add(i, img)
+            out.append(extractor.finish(len(images)))
+            chunks += extractor.chunks
+        return out, chunks
+
+    def ranks_of(out):
+        vecs, qvecs = (torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                       for v in out)
+        return rank_database(vecs, qvecs).cpu().numpy()
+
+    def recording(sink, inputs=None):
+        def wrap(chain_fn):
+            def fn(batch, aux):
+                if inputs is not None:
+                    inputs.append((batch.clone(), {k: v.clone()
+                                                   for k, v in aux.items()}))
+                result = chain_fn(batch, aux)
+                sink.append(result.cpu())
+                return result
+            return fn
+        return wrap
+
+    # warm-up (cuDNN plans, allocator) that also records each chunk's
+    # chain input and output
+    chain_out, chain_in = [], []
+    run_path(network, (db, queries), recording(chain_out, chain_in))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = []
+
+    def timing(chain_fn):
+        def fn(batch, aux):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            result = chain_fn(batch, aux)
+            end.record()
+            events.append((start, end))
+            return result
+        return fn
+
+    pooling_kernel.reset_launches()
+    lab_trilinear.reset_launches()
+    clahe.reset_launches()
+    t = time.perf_counter()
+    out, chunks = run_path(network, (db, queries), timing)
+    ranks = ranks_of(out)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launches = {"gem_l2n": pooling_kernel.launches,
+                "lab_n": lab_trilinear.launches, **clahe.launches}
+    peak = torch.cuda.max_memory_allocated()
+    chain_ms = sum(a.elapsed_time(b) for a, b in events)
+    n_images = len(db) + len(queries)
+    say("clahe", "VGG16-GeM %d-d, %s, scales %s, Lw: %d images in %d "
+        "chunks, %.2f s, %.1f images/s, peak %.2f GB; chain %.1f ms "
+        "(%.1f%% of the pass)"
+        % (CLAHE_DIM, CLAHE_TRANSFORM, [round(x, 4) for x in SCALES],
+           n_images, chunks, seconds, n_images / seconds, peak / 1e9,
+           chain_ms, 100 * chain_ms / (1e3 * seconds)))
+    for v in out:
+        check(v.shape[0] == CLAHE_DIM and np.isfinite(v).all(),
+              "finite descriptors of the CLAHE path")
+        norms = np.linalg.norm(v, axis=0)
+        check(np.abs(norms - 1).max() < 1e-4, ("unit norms", norms))
+    for name in ("lab_n", "clahe_tile_luts", "clahe_interp"):
+        check(launches[name] == chunks > 0,
+              ("%s launches == chunks" % name, launches[name], chunks))
+    check(launches["gem_l2n"] == chunks * len(SCALES),
+          ("gem_l2n launches == chunks x scales", launches, chunks))
+    mean_ap, _, pr, _ = compute_map(ranks, gnd, kappas=(1, 5, 10))
+    say("clahe", "launches %s for %d chunks; mAP %.4f, mP@1/5/10 %s"
+        % (launches, chunks, mean_ap, np.round(pr, 4).tolist()))
+
+    plain_out = []
+    with plain_clahe_kernels(clahe, lab_trilinear):
+        pout, _ = run_path(network, (db, queries), recording(plain_out))
+    check(len(plain_out) == len(chain_out) == chunks, "chunks recorded")
+    for i, (a, b) in enumerate(zip(chain_out, plain_out)):
+        check(torch.equal(a, b), ("chain output of chunk %d vs plain" % i,
+                                  float((a - b).abs().max())))
+    desc_err = max(np.abs(a - b).max() for a, b in zip(out, pout))
+    check(desc_err <= DESC_ATOL, ("descriptors vs plain chain", desc_err))
+    check((ranks[:10] == ranks_of(pout)[:10]).all(),
+          "top-10 ranks vs plain chain")
+    say("clahe", "plain lab + CLAHE on the card: chain output bit-equal in "
+        "all %d chunks, max |desc diff| %.2e, top-10 ranks equal"
+        % (chunks, desc_err))
+
+    small = [db[0][:256, :192], queries[4][:192, :256]]
+    cpu_net = CirNetwork(initialize_model(CLAHE_MODEL, device="cpu",
+                                          seed=SEED),
+                         CirNetwork.NetworkParams(
+                             model=dict(CLAHE_MODEL), runtime=runtime),
+                         frozen=True)
+    card, cpu = (run_path(net, (small,))[0][0] for net in (network, cpu_net))
+    cross_err = np.abs(card - cpu).max()
+    check(cross_err <= DESC_ATOL, ("CLAHE path, card vs CPU", cross_err))
+    say("clahe", "small input, card against CPU: max |desc diff| %.2e"
+        % cross_err)
+    return {"launches": launches, "inputs": chain_in,
+            "grid": chain_from_transform(transform).clahe_params[1]}
+
+
+def clahe_timing_phase(clahe, lab_trilinear, inputs, grid):
+    """Phase 8: the kernels at every chunk of the main path against plain,
+    and their times at the largest chunk. Returns the kernels' entries."""
+    for batch, aux in inputs:
+        check_equal(lab_trilinear.lab_n(batch),
+                    lab_trilinear.lab_n_plain(batch), ("lab_n", batch.shape))
+        l_u8 = lab_trilinear.lab_l_u8(batch)
+        clahe_against_plain(clahe, l_u8, aux, grid, (tuple(batch.shape),))
+    batch, aux = max(inputs, key=lambda ba: ba[0].numel())
+    l_u8 = lab_trilinear.lab_l_u8(batch)
+    luts = clahe.clahe_tile_luts(l_u8, aux, grid)
+    timed = {
+        "lab_n": (lambda: lab_trilinear.lab_n(batch),
+                  lambda: lab_trilinear.lab_n_plain(batch),
+                  lab_bound_ms(tuple(batch.shape))),
+        "clahe_tile_luts": (
+            lambda: clahe.clahe_tile_luts(l_u8, aux, grid),
+            lambda: clahe.tile_luts_bucketed_plain(l_u8, aux, grid),
+            tile_luts_bound_ms(l_u8, aux, grid)),
+        "clahe_interp": (
+            lambda: clahe.clahe_interp(l_u8, luts, aux, grid),
+            lambda: clahe.clahe_interp_bucketed_plain(l_u8, luts, aux, grid),
+            interp_bound_ms(l_u8, grid)),
+    }
+    entries = {}
+    for name, (kernel, plain, (bound_ms, bound_by)) in timed.items():
+        ms = cuda_ms(kernel)
+        plain_ms = cuda_ms(plain, launches=10, warmup=2)
+        entries[name] = {"ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by}
+        say("time", "%s at %s (main path's largest chunk): kernel %.4f ms, "
+            "plain %.4f ms, bound %.4f ms (%s)"
+            % (name, tuple(batch.shape), ms, plain_ms, bound_ms, bound_by))
+    say("time", "lab_n, clahe_tile_luts, clahe_interp bit-equal to plain at "
+        "all %d main-path chunks" % len(inputs))
+    return entries
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; it runs on a card only")
@@ -163,7 +499,7 @@ def main():
     from mdir_tpu_torch.device import resolve_device
     from mdir_tpu_torch.learning.network import CirNetwork
     from mdir_tpu_torch.models import initialize_model
-    from mdir_tpu_torch.ops import pooling_kernel
+    from mdir_tpu_torch.ops import clahe, lab_trilinear, pooling_kernel
     from mdir_tpu_torch.ops.pooling import gem_l2n_plain
     from mdir_tpu_torch.ops.ranking import compute_map, rank_database
     from mdir_tpu_torch.parallel.extract import network_extractor
@@ -314,13 +650,39 @@ def main():
         "err %.2e" % (shape, ms, plain_ms, bound_ms, bound_by, len(distinct),
                       max_err))
 
-    print(json.dumps({"kernels": [{
+    # 6-8. the lab CLAHE chain's kernels and the CLAHE main path
+    clahe_kernel_phase(device, clahe, lab_trilinear)
+    path = clahe_path_phase(device, db, queries, gnd, rng)
+    timed = clahe_timing_phase(clahe, lab_trilinear, path["inputs"],
+                               path["grid"])
+    sources = {"lab_n": ("mdir_tpu_torch/csrc/lab_n.cu",
+                         "mdir_tpu/ops/lab_trilinear.py:493",
+                         ["mdir_tpu/ops/lab_trilinear.py:359"],
+                         ["lab_trilinear.lab_l_u8"]),
+               "clahe_tile_luts": ("mdir_tpu_torch/csrc/clahe.cu",
+                                   "mdir_tpu/ops/clahe_pallas.py:157",
+                                   ["mdir_tpu/ops/clahe_pallas.py:185"],
+                                   ["clahe.clahe_u8"]),
+               "clahe_interp": ("mdir_tpu_torch/csrc/clahe.cu",
+                                "mdir_tpu/ops/clahe_pallas.py:262",
+                                ["mdir_tpu/ops/clahe_pallas.py:75",
+                                 "mdir_tpu/ops/clahe_pallas.py:185"],
+                                ["clahe.clahe_u8"])}
+    kernels = [{
         "name": "gem_l2n", "route": "cuda",
         "source": "mdir_tpu_torch/csrc/gem_l2n.cu",
         "replaces": "mdir_tpu/ops/pooling_pallas.py:59",
         "launches": launches, "max_abs_err": max_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}]}))
+        "library_ms": None,
+        "clahe_path_launches": path["launches"]["gem_l2n"]}]
+    for name, (source, replaces, also, wrappers) in sources.items():
+        kernels.append(dict(
+            {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": path["launches"][name],
+             "max_abs_err": 0.0}, **timed[name], library_ms=None,
+            also_replaces=also, off_path_wrappers=wrappers))
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

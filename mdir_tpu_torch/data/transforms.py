@@ -1,7 +1,11 @@
-"""Host transforms of the eval path: the ``pil2np | totensor | normalize``
-chain of ``mdir_tpu/data/transforms.py`` and its pipe DSL. Images stay HWC
-numpy arrays on the host. The photometric transforms (CLAHE, colorspaces)
-come with the CLAHE slice.
+"""Host transforms of the eval path and their pipe DSL, as
+``mdir_tpu/data/transforms.py`` has them. Images stay HWC numpy arrays on
+the host.
+
+The photometric transforms (``apply_clahe``, ``add_clahe_fromrgb``,
+``tospace``) parse their parameters as the JAX package does, but run only
+as the device chain (``ops/preprocess.py``), which the extractor builds from
+them: the port has no cv2, so their host ``__call__`` raises.
 """
 import numpy as np
 
@@ -79,10 +83,43 @@ class Pil2Numpy(GenericTransform):
                 for x in pics]
 
 
+class _DeviceChainOnly(GenericTransform):
+    """A photometric transform that runs only inside the device chain."""
+
+    def __call__(self, *pics):
+        raise NotImplementedError(
+            "%s runs on the device chain (ops/preprocess.py, through the "
+            "extractor); the port has no host colorspace path" % self)
+
+
+class ToColorspace(_DeviceChainOnly):
+    def __init__(self, colorspace):
+        super().__init__({"colorspace": colorspace})
+
+
+class AddClaheFromRgb(_DeviceChainOnly):
+    """Append the image's CLAHE-normalized lightness as a new channel."""
+
+    def __init__(self, clip_limit=4, grid_size=8, colorspace="lab"):
+        super().__init__({"clip_limit": int(clip_limit),
+                          "grid_size": grid_size, "colorspace": colorspace})
+
+
+class ApplyClahe(_DeviceChainOnly):
+    """CLAHE the lightness channel in place in a colorspace."""
+
+    def __init__(self, clip_limit=4, colorspace="lab", grid_size=8):
+        super().__init__({"clip_limit": clip_limit, "colorspace": colorspace,
+                          "grid_size": grid_size})
+
+
 TRANSFORMS = {
     "totensor": ToTensor,
     "normalize": Normalize,
     "pil2np": Pil2Numpy,
+    "tospace": ToColorspace,
+    "add_clahe_fromrgb": AddClaheFromRgb,
+    "apply_clahe": ApplyClahe,
 }
 
 

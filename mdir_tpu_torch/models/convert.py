@@ -14,7 +14,8 @@ numpy arrays -- from a JAX model in memory or from its msgpack checkpoint --
 
 ResNet module names map to cirtorch's ``features`` indices: conv1 -> 0,
 bn1 -> 1, ``layer<L>_<B>`` -> ``<L+3>.<B>``, ``downsample_<i>`` ->
-``downsample.<i>``.
+``downsample.<i>``. The alexnet/vgg stacks already carry them:
+``features/<idx>/conv/{kernel,bias}`` -> ``features.<idx>.{weight,bias}``.
 """
 import re
 from collections import OrderedDict
@@ -30,6 +31,8 @@ def _module_name(path):
     head, rest = path[0], list(path[1:])
     if head != "features" or not rest:
         return ".".join([head] + rest)
+    if rest[0].isdigit():  # alexnet/vgg: torchvision's own index
+        return ".".join(["features"] + rest)
     if rest[0] in _RESNET_STEM:
         return ".".join(["features", _RESNET_STEM[rest[0]]] + rest[1:])
     match = re.fullmatch(r"layer(\d)_(\d+)", rest[0])

@@ -1,9 +1,11 @@
 """CNN feature trunks in NCHW, with exact valid-extent masking.
 
-The ResNet trunk of ``mdir_tpu/models/trunks.py``: torchvision's resnet
-without avgpool/fc, named as cirtorch names it (``features.0`` = conv1,
-``features.1`` = bn1, ``features.4``..``features.7`` = layer1..layer4), so a
-cirtorch state dict loads as it is. AlexNet and VGG come with a later slice.
+The ResNet, VGG and AlexNet trunks of ``mdir_tpu/models/trunks.py``, named
+as cirtorch names them, so a cirtorch state dict loads as it is:
+torchvision's resnet without avgpool/fc (``features.0`` = conv1,
+``features.1`` = bn1, ``features.4``..``features.7`` = layer1..layer4), and
+the ``features`` stack of alexnet/vgg without its final maxpool
+(``features.<idx>`` = the conv at torchvision index idx).
 
 Static-shape batching: images padded into a shape bucket carry a per-image
 valid extent ``valid_hw`` (N, 2) through the trunk. After every
@@ -171,23 +173,124 @@ class ResNetFeatures(nn.ModuleDict):
         return x, valid_hw
 
 
+class SequentialFeatures(nn.ModuleDict):
+    """Feature stack named by torchvision ``features.<idx>`` indices.
+
+    Spec items: ``("conv", idx, out, k, s, p)`` (with bias),
+    ``("relu",)``, ``("maxpool", k, s[, p])``. The valid extent is masked
+    after every ReLU and after every maxpool, as in the JAX package.
+    """
+
+    def __init__(self, spec, in_channels=3):
+        modules = {}
+        for item in spec:
+            if item[0] == "conv":
+                _, idx, out, k, s, p = item
+                modules[str(idx)] = nn.Conv2d(in_channels, out, k, s, p)
+                in_channels = out
+            elif item[0] not in ("relu", "maxpool"):
+                raise NotImplementedError("spec item %r is not ported yet"
+                                          % (item,))
+        super().__init__(modules)
+        self.spec = tuple(spec)
+
+    def forward(self, x, valid_hw=None):
+        for item in self.spec:
+            if item[0] == "conv":
+                _, idx, _, k, s, p = item
+                x = self[str(idx)](x)
+                if valid_hw is not None:
+                    valid_hw = conv_out_extent(valid_hw, k, s, p)
+            elif item[0] == "relu":
+                x = apply_valid_mask(F.relu(x), valid_hw)
+            else:  # maxpool
+                p = item[3] if len(item) > 3 else 0
+                x = F.max_pool2d(x, item[1], item[2], padding=p)
+                if valid_hw is not None:
+                    valid_hw = conv_out_extent(valid_hw, item[1], item[2], p)
+                    x = apply_valid_mask(x, valid_hw)
+        return x, valid_hw
+
+
+# torchvision ``features`` indices with cirtorch's [:-1] slicing: the
+# trailing maxpool is dropped so the trunk ends with a ReLU
+ALEXNET_SPEC = (
+    ("conv", 0, 64, 11, 4, 2), ("relu",), ("maxpool", 3, 2),
+    ("conv", 3, 192, 5, 1, 2), ("relu",), ("maxpool", 3, 2),
+    ("conv", 6, 384, 3, 1, 1), ("relu",),
+    ("conv", 8, 256, 3, 1, 1), ("relu",),
+    ("conv", 10, 256, 3, 1, 1), ("relu",),
+)
+
+
+def _vgg_spec(cfg):
+    spec = []
+    idx = 0
+    for v in cfg:
+        if v == "M":
+            spec.append(("maxpool", 2, 2))
+            idx += 1
+        else:
+            spec.append(("conv", idx, v, 3, 1, 1))
+            spec.append(("relu",))
+            idx += 2
+    if spec[-1][0] == "maxpool":  # drop the final maxpool ([:-1])
+        spec = spec[:-1]
+    return tuple(spec)
+
+
+VGG_CFGS = {
+    "vgg11": [64, "M", 128, "M", 256, 256, "M", 512, 512, "M", 512, 512,
+              "M"],
+    "vgg13": [64, 64, "M", 128, 128, "M", 256, 256, "M", 512, 512, "M", 512,
+              512, "M"],
+    "vgg16": [64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
+              512, 512, 512, "M", 512, 512, 512, "M"],
+    "vgg19": [64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
+              512, 512, 512, 512, "M", 512, 512, 512, 512, "M"],
+}
+
+
+def _arch_spec(architecture):
+    """SequentialFeatures spec of alexnet/vgg (None for the others)."""
+    if architecture == "alexnet":
+        return ALEXNET_SPEC
+    if architecture in VGG_CFGS:
+        return _vgg_spec(VGG_CFGS[architecture])
+    return None
+
+
 def make_trunk(architecture):
     """Build the feature trunk module for an architecture label."""
+    spec = _arch_spec(architecture)
+    if spec is not None:
+        return SequentialFeatures(spec)
     if architecture in RESNET_LAYERS:
         block, layers = RESNET_LAYERS[architecture]
         return ResNetFeatures(block, layers)
     raise NotImplementedError(
-        "trunk %r is not ported yet (this slice ports the resnets)"
-        % architecture)
+        "trunk %r is not ported yet (the port has the resnets, vgg and "
+        "alexnet)" % architecture)
 
 
 def trunk_valid_extent(architecture, hw):
     """Host replay of the trunk's valid-extent arithmetic for one image:
     the feature-map extent that an input of true size ``hw`` gives."""
     h, w = int(hw[0]), int(hw[1])
+    step = conv_out_extent
+    spec = _arch_spec(architecture)
+    if spec is not None:
+        for item in spec:
+            if item[0] == "conv":
+                _, _, _, k, s, p = item
+                h, w = step(h, k, s, p), step(w, k, s, p)
+            elif item[0] == "maxpool":
+                p = item[3] if len(item) > 3 else 0
+                h, w = step(h, item[1], item[2], p), \
+                    step(w, item[1], item[2], p)
+        return h, w
     if architecture not in RESNET_LAYERS:
         raise NotImplementedError("trunk %r is not ported yet" % architecture)
-    step = conv_out_extent
     h, w = step(h, 7, 2, 3), step(w, 7, 2, 3)
     h, w = step(h, 3, 2, 1), step(w, 3, 2, 1)
     for _ in range(3):  # layers 2-4 start with a stride-2 3x3 p1 conv

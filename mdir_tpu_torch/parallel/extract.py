@@ -4,10 +4,13 @@ The port of ``mdir_tpu/parallel/extract.py``. Images are grouped into shape
 buckets (sides rounded up to ``BUCKET_MULTIPLE``), zero-padded and run as
 batches of up to ``MAX_BATCH``; the trunk masks each image's valid extent so
 a padded image gives what it gives at its own size. Per chunk, on the device:
-uint8 -> /255 -> (x - mean) / std -> mask -> for each scale an exact
-per-image bilinear resize (host-computed gather grids, torch
-``F.interpolate(scale_factor)`` coordinates) -> masked trunk -> GeM+L2N
-kernel -> p-power aggregation over scales -> L2 -> optional whitening.
+uint8 -> /255 -> (x - mean) / std, or the device photometric chain
+(``ops/preprocess.py``: lab lattice, bucketed CLAHE with per-image cv2 tile
+geometry from the host, lab -> rgb, normalize) on the full-resolution
+bucket -> mask -> for each scale an exact per-image bilinear resize
+(host-computed gather grids, torch ``F.interpolate(scale_factor)``
+coordinates) -> masked trunk -> GeM+L2N kernel -> p-power aggregation over
+scales -> L2 -> optional whitening.
 
 Everything runs synchronously on the calling thread: chunks are copied to the
 device and launched in order on the current stream, and ``finish`` copies
@@ -22,6 +25,8 @@ import torch
 from ..learning.wrappers import (CirMultiscaleAggregation, CirtorchWhiten,
                                  FakeBatch)
 from ..models.trunks import apply_valid_mask
+from ..ops import preprocess
+from ..ops.clahe import aux_to_device, clahe_bucket_aux
 from ..ops.resize import gather_resize, torch_resize_grid
 from ..ops.whitening import whitenapply_rows
 
@@ -68,14 +73,20 @@ def _plain_normalize_chain(transform):
 
 @torch.no_grad()
 def fused_forward(model, scales, batch, valid_hw, grids, msp, P=None, m=None,
-                  mean=None, std=None):
+                  mean=None, std=None, chain_fn=None, clahe_aux=None):
     """One chunk's descriptors: (B, H, W, C) bucket -> (B, D).
 
-    batch is uint8 (normalised here with ``mean``/``std``) or float32
-    (already normalised on the host); valid_hw (B, 2) int32; grids[s] is None
-    for scale 1, else (y0, y1, wy, x0, x1, wx, out_valid) of that scale.
+    batch is uint8 (normalised here with ``mean``/``std``, or run through
+    ``chain_fn(batch, clahe_aux)``, the device chain) or float32 (already
+    normalised on the host); valid_hw (B, 2) int32; grids[s] is None for
+    scale 1, else (y0, y1, wy, x0, x1, wx, out_valid) of that scale.
     """
-    x = batch.permute(0, 3, 1, 2)
+    if chain_fn is not None:
+        # the whole chain at full resolution in NHWC, then one permute
+        x = chain_fn(batch, clahe_aux).permute(0, 3, 1, 2)
+        x = apply_valid_mask(x, valid_hw)
+    else:
+        x = batch.permute(0, 3, 1, 2)
     if mean is not None:
         x = x.to(torch.float32) / 255.0
         x = (x - mean[None, :, None, None]) / std[None, :, None, None]
@@ -103,13 +114,16 @@ class StreamingExtractor:
     (``max_batch`` images) runs at once, and ``finish`` runs the rest and
     returns the (D, N) descriptor matrix. The model's device is where the
     work runs. With ``normalize_mean_std`` the arrays are uint8 pixels and
-    the normalisation runs on the device; otherwise they are float32 arrays
-    normalised on the host.
+    the normalisation runs on the device; with ``device_chain`` (an
+    ``ops.preprocess.DeviceChain``) they are uint8 RGB and the whole
+    photometric chain runs on the device, with each chunk's CLAHE tile
+    geometry computed here from the images' true shapes; otherwise they are
+    float32 arrays normalised on the host.
     """
 
     def __init__(self, model, scales=(1,), msp=1.0, whiten=None,
                  normalize_mean_std=None, bucket_multiple=BUCKET_MULTIPLE,
-                 max_batch=MAX_BATCH):
+                 max_batch=MAX_BATCH, device_chain=None):
         self.model = model
         self.device = model.device
         self.scales = list(scales)
@@ -126,6 +140,13 @@ class StreamingExtractor:
             self.mean, self.std = (
                 torch.tensor(v, dtype=torch.float32, device=self.device)
                 for v in normalize_mean_std)
+            self.host_dtype = np.uint8
+        self.device_chain = device_chain
+        self.chain_fn = None
+        if device_chain is not None:
+            if normalize_mean_std is not None:
+                raise ValueError("a device chain normalizes itself")
+            self.chain_fn = preprocess.make_bucketed_chain(device_chain)
             self.host_dtype = np.uint8
         self.buffers = collections.defaultdict(list)  # bucket -> [(i, arr)]
         self.saw_full = set()  # buckets that ran a full-size chunk
@@ -189,11 +210,19 @@ class StreamingExtractor:
         for bi, (_, arr) in enumerate(items):
             valid[bi] = arr.shape[:2]
             batch[bi, :arr.shape[0], :arr.shape[1]] = arr
+        clahe_aux = None
+        if self.device_chain is not None \
+                and self.device_chain.clahe_params is not None:
+            # cv2's tile geometry per image; a filler slot takes the bucket
+            clip, grid = self.device_chain.clahe_params
+            clahe_aux = aux_to_device(clahe_bucket_aux(
+                list(shapes) + [bucket] * (bsz - len(items)), bucket,
+                clip_limit=clip, grid=grid), self.device)
         vecs = fused_forward(
             self.model, self.scales, torch.from_numpy(batch).to(self.device),
             torch.from_numpy(valid).to(self.device),
             self._grids(shapes, bsz, bucket), self.msp, self.P, self.m,
-            self.mean, self.std)
+            self.mean, self.std, self.chain_fn, clahe_aux)
         self.chunks += 1
         self.results.append(([i for i, _ in items], vecs))
 
@@ -232,22 +261,43 @@ def extract_vectors_batched(model, arrays, scales=(1,), msp=1.0, whiten=None,
     return extractor.finish(len(arrays))
 
 
+def _has_photometric_step(transform):
+    """Whether ``transform`` has a step that only the device chain runs."""
+    from ..data import transforms as T
+
+    return any(isinstance(t, (T.ApplyClahe, T.AddClaheFromRgb,
+                              T.ToColorspace))
+               for t in getattr(transform, "transforms", None) or ())
+
+
 def network_extractor(network, transform, batch_size=MAX_BATCH):
     """A StreamingExtractor for ``network``'s eval wrappers and ``transform``.
 
     With a plain pil2np|totensor|normalize transform of 3 channels the
-    extractor takes uint8 pixels; otherwise float32 arrays that
-    ``transform`` produced on the host.
+    extractor takes uint8 pixels and normalises on the device; with a
+    photometric chain (CLAHE, tospace) it takes uint8 RGB and runs the
+    chain on the device (``ops.preprocess.chain_from_transform``), and a
+    chain that does not lower raises; otherwise it takes float32 arrays
+    that ``transform`` produced on the host.
     """
     scales, whiten = _analyze_wrappers(network)
     model = network.model
     mean_std = _plain_normalize_chain(transform)
     if mean_std is not None and len(mean_std[0]) != 3:
         mean_std = None
+    chain = None
+    if mean_std is None and _has_photometric_step(transform):
+        chain = preprocess.chain_from_transform(transform)
+        if chain is None:
+            raise NotImplementedError(
+                "transform %r has no device chain, and the port runs CLAHE "
+                "and colorspace steps only there (%s)"
+                % (transform, preprocess.NOT_PORTED))
     return StreamingExtractor(
         model, scales=scales,
         msp=CirMultiscaleAggregation.msp(model, len(scales)), whiten=whiten,
-        max_batch=batch_size, normalize_mean_std=mean_std)
+        max_batch=batch_size, normalize_mean_std=mean_std,
+        device_chain=chain)
 
 
 def extract_vectors_network(network, images, image_size, transform,

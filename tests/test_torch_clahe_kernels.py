@@ -1,0 +1,103 @@
+"""The lab_n, clahe_tile_luts and clahe_interp CUDA kernels against their
+plain versions, on the card, bit-equal (every output is an exact integer or
+u8 value).
+
+Marked ``gpu``: skipped without a card. This file imports neither JAX nor
+the JAX package, so on the card's machine it runs without the repository's
+conftest (which imports JAX):
+
+    python -m pytest --noconftest -m gpu tests/test_torch_clahe_kernels.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from mdir_tpu_torch.device import resolve_device
+from mdir_tpu_torch.ops import clahe, lab_trilinear
+
+pytestmark = pytest.mark.gpu
+
+# ragged extents in a (1024, 1024) bucket: non-divisible, divisible, tiny,
+# and a filler slot of the bucket's own shape
+SHAPES = [(1000, 750), (683, 1024), (1024, 768), (512, 512), (1, 1), (7, 9),
+          (1024, 1024)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return resolve_device("cuda")
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1, 3), (3, 7, 9, 3),
+                                   (2, 256, 320, 3)])
+def test_lab_n_matches_plain(cuda, shape):
+    rgb = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 256, shape).astype(np.uint8)).to(cuda)
+    before = lab_trilinear.launches
+    out = lab_trilinear.lab_n(rgb)
+    torch.cuda.synchronize()
+    assert lab_trilinear.launches == before + 1
+    assert torch.equal(out, lab_trilinear.lab_n_plain(rgb))
+
+
+def test_lab_n_full_sweep(cuda):
+    """All 256^3 RGB triples in one (1, 4096, 4096, 3) image."""
+    v = torch.arange(256, device=cuda, dtype=torch.int32)
+    rgb = torch.stack(torch.meshgrid(v, v, v, indexing="ij"), -1)
+    rgb = rgb.reshape(1, 4096, 4096, 3).to(torch.uint8).contiguous()
+    assert torch.equal(lab_trilinear.lab_n(rgb),
+                       lab_trilinear.lab_n_plain(rgb))
+
+
+@pytest.mark.parametrize("clip,grid", [(2.0, 8), (4.0, 8), (40.0, 8),
+                                       (4.0, 4)])
+def test_clahe_kernels_match_plain(cuda, clip, grid):
+    rng = np.random.RandomState(1)
+    bh, bw = 1024, 1024
+    vals = np.zeros((len(SHAPES), bh, bw), np.int32)
+    for i, (h, w) in enumerate(SHAPES):
+        vals[i, :h, :w] = rng.randint(0, 256, (h, w))
+    vals = torch.from_numpy(vals).to(cuda)
+    aux = clahe.aux_to_device(
+        clahe.clahe_bucket_aux(SHAPES, (bh, bw), clip, (grid, grid)), cuda)
+    before = dict(clahe.launches)
+    luts = clahe.clahe_tile_luts(vals, aux, (grid, grid))
+    out = clahe.clahe_interp(vals, luts, aux, (grid, grid))
+    torch.cuda.synchronize()
+    assert clahe.launches["clahe_tile_luts"] \
+        == before["clahe_tile_luts"] + 1
+    assert clahe.launches["clahe_interp"] == before["clahe_interp"] + 1
+    plain_luts = clahe.tile_luts_bucketed_plain(vals, aux, (grid, grid))
+    assert torch.equal(luts, plain_luts)
+    assert torch.equal(out, clahe.clahe_interp_bucketed_plain(
+        vals, plain_luts, aux, (grid, grid)))
+
+
+def test_clahe_u8_and_lab_l_u8_match_plain(cuda):
+    """The single-image static-grid CLAHE and the L-only plane, on the same
+    kernels."""
+    rng = np.random.RandomState(2)
+    src = torch.from_numpy(rng.randint(0, 256, (683, 1000)).astype(
+        np.uint8)).to(cuda)
+    out = clahe.clahe_u8(src, 4.0, (8, 8))
+    assert torch.equal(out, clahe.clahe_u8(src.cpu(), 4.0, (8, 8)).to(cuda))
+    rgb = torch.from_numpy(rng.randint(0, 256, (2, 64, 96, 3)).astype(
+        np.uint8)).to(cuda)
+    assert torch.equal(lab_trilinear.lab_l_u8(rgb),
+                       (lab_trilinear.lab_n_plain(rgb)[..., 0] * 255) >> 14)
+
+
+def test_wrappers_refuse_what_they_do_not_take(cuda):
+    vals = torch.zeros((1, 16, 16), dtype=torch.int32, device=cuda)
+    aux = clahe.aux_to_device(clahe.clahe_bucket_aux([(16, 16)], (16, 16)),
+                              cuda)
+    with pytest.raises(ValueError, match="int32"):
+        clahe.clahe_tile_luts(vals.float(), aux, (8, 8))
+    with pytest.raises(ValueError, match="aux"):
+        clahe.clahe_tile_luts(vals, clahe.aux_to_device(
+            clahe.clahe_bucket_aux([(16, 16)], (16, 16)), "cpu"), (8, 8))
+    with pytest.raises(ValueError, match="contiguous"):
+        lab_trilinear.lab_n(torch.zeros((1, 4, 4, 3), dtype=torch.uint8,
+                                        device=cuda).transpose(1, 2))

@@ -138,3 +138,84 @@ def test_batched_equals_port_wrapper_path(rng, models, whiten_pkl):
     ours = extractor.finish(len(arrays))
     assert extractor.chunks == 2  # two shape buckets
     np.testing.assert_allclose(ref, ours, rtol=1e-4, atol=1e-5)
+
+
+ALEXNET = dict(MODEL, cir_architecture="alexnet")
+CLAHE_DSL = "pil2np | apply_clahe | totensor | normalize"
+
+
+@pytest.fixture(scope="module")
+def alexnet_models():
+    jax_model = jax_initialize_model(ALEXNET)
+    port_model = initialize_model(ALEXNET, device="cpu")
+    port_model.load_state_dict(from_jax_variables(
+        jax.tree.map(np.asarray, jax_model.variables)), strict=True)
+    return jax_model, port_model
+
+
+def test_clahe_chain_multiscale_whiten_matches_jax(alexnet_models,
+                                                   tmp_path):
+    """AlexNet-GeM + lab CLAHE device chain + three scales + Lw: the port's
+    extractor against the JAX package's StreamingExtractor with its
+    device_chain, on ragged uint8 images in two buckets, one of them with
+    a filler slot."""
+    from mdir_tpu.data.transforms import initialize_transforms as jax_tf
+    from mdir_tpu.ops.preprocess import chain_from_transform as jax_chain_of
+    from mdir_tpu.parallel.extract import StreamingExtractor as JaxExtractor
+
+    from mdir_tpu_torch.data.transforms import initialize_transforms
+    from mdir_tpu_torch.ops import clahe, lab_trilinear
+    from mdir_tpu_torch.ops.preprocess import chain_from_transform
+
+    jax_model, port_model = alexnet_models
+    rng = np.random.RandomState(8)
+    path = tmp_path / "whiten256.pkl"
+    with open(path, "wb") as handle:
+        pickle.dump({"P": np.eye(256) + 0.01 * rng.randn(256, 256),
+                     "m": 0.01 * rng.randn(256, 1)}, handle)
+    # three images in the (96, 128) bucket: a full chunk of 2, then one
+    # image beside a filler slot; one image in the (128, 96) bucket
+    arrays = [(rng.rand(*shape, 3) * 255).astype(np.uint8)
+              for shape in ((80, 100), (100, 70), (70, 110), (75, 120))]
+    msp = float(jax_model.pool_p)
+    ref_ex = JaxExtractor(jax_model, scales=SCALES, msp=msp,
+                          whiten=JaxWhiten(str(path)), bucket_multiple=32,
+                          max_batch=2,
+                          device_chain=jax_chain_of(jax_tf(CLAHE_DSL,
+                                                           MEAN_STD)))
+    ex = extract.StreamingExtractor(
+        port_model, scales=SCALES, msp=msp, whiten=CirtorchWhiten(str(path)),
+        bucket_multiple=32, max_batch=2,
+        device_chain=chain_from_transform(initialize_transforms(CLAHE_DSL,
+                                                                MEAN_STD)))
+    assert ex.host_dtype == np.uint8
+    before = (lab_trilinear.launches, dict(clahe.launches))
+    for i, arr in enumerate(arrays):
+        ref_ex.add(i, arr)
+        ex.add(i, arr)
+    ref = ref_ex.finish(len(arrays))
+    ours = ex.finish(len(arrays))
+    assert (lab_trilinear.launches, clahe.launches) == before  # CPU: plain
+    assert ex.chunks == 3 and ours.shape == (256, 4)
+    np.testing.assert_allclose(ref, ours, rtol=1e-4, atol=1e-4)
+
+
+def test_network_extractor_lowers_clahe_or_raises(alexnet_models):
+    from mdir_tpu_torch.data.transforms import initialize_transforms
+
+    network = CirNetwork(alexnet_models[1], CirNetwork.NetworkParams(
+        model={}, runtime={"wrappers": {
+            "train": None, "eval": {"0_cirmultiscale": {"scales": True}}}}),
+        frozen=True)
+    extractor = extract.network_extractor(
+        network, initialize_transforms(CLAHE_DSL, MEAN_STD))
+    assert extractor.device_chain.clahe_params == (4.0, (8, 8))
+    assert extractor.host_dtype == np.uint8
+    # a colorspace step before CLAHE has no device chain: no host fallback
+    with pytest.raises(NotImplementedError, match="device chain"):
+        extract.network_extractor(network, initialize_transforms(
+            "pil2np | tospace:lab | apply_clahe | totensor | normalize",
+            MEAN_STD))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        extract.network_extractor(network, initialize_transforms(
+            "pil2np | apply_clahe:4:luv | totensor | normalize", MEAN_STD))

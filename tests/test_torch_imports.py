@@ -61,3 +61,30 @@ def test_chip_smoke_alone_fails(tmp_path):
     assert result.returncode != 0
     assert '"ok": true' not in result.stdout
     assert os.listdir(tmp_path) == ["chip_smoke.py"]
+
+
+RUN_CHAIN = """
+import sys
+for name in %r:
+    sys.modules[name] = None
+import numpy as np, torch
+from mdir_tpu_torch.data.transforms import initialize_transforms
+from mdir_tpu_torch.ops import clahe, colorspace, lab_trilinear, preprocess
+from mdir_tpu_torch.parallel import extract
+chain = preprocess.chain_from_transform(initialize_transforms(
+    "pil2np | apply_clahe | totensor | normalize", [[0.5] * 3, [0.5] * 3]))
+batch = torch.from_numpy(np.random.RandomState(0).randint(
+    0, 256, (1, 16, 24, 3)).astype(np.uint8))
+aux = clahe.aux_to_device(clahe.clahe_bucket_aux([(13, 21)], (16, 24)),
+                          "cpu")
+out = preprocess.make_bucketed_chain(chain)(batch, aux)
+print(tuple(out.shape), bool(torch.isfinite(out).all()))
+""" % (BLOCKED,)
+
+
+def test_clahe_chain_runs_without_jax_cv2_pil():
+    """The lab CLAHE chain's modules (with their own node table) import and
+    run on the CPU with JAX, the JAX package, cv2 and PIL blocked."""
+    result = _run(["-c", RUN_CHAIN], ROOT)
+    assert result.returncode == 0, result.stderr[-3000:]
+    assert result.stdout.split("\n")[-2] == "(1, 16, 24, 3) True"

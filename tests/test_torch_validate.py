@@ -227,3 +227,54 @@ def test_validate_default_device_needs_a_card(checkpoint_and_whitening):
     net_path, whit_path = checkpoint_and_whitening
     with pytest.raises(RuntimeError, match="no CUDA device"):
         validate(_scenario(net_path, whit_path), ())
+
+
+ALEXNET = dict(MODEL, cir_architecture="alexnet")
+
+
+@pytest.fixture(scope="module")
+def alexnet_checkpoint(data_root):
+    model = jax_initialize_model(ALEXNET)
+    network = JaxCirNetwork(
+        model,
+        JaxCirNetwork.NetworkParams(
+            model=dict(ALEXNET),
+            runtime={"wrappers": "",
+                     "data": {"mean_std": [model.meta["mean"],
+                                           model.meta["std"]],
+                              "transforms": "pil2np | totensor | normalize"}}))
+    net_path = data_root / "alexnet_checkpoint.ckpt"
+    save_state(network.state_dict()["net"], net_path)
+    rng = np.random.RandomState(1)
+    dim = model.meta["out_channels"]
+    whit_path = data_root / "whitening_alexnet.pkl"
+    with open(whit_path, "wb") as handle:
+        pickle.dump({"P": np.eye(dim) + 0.01 * rng.randn(dim, dim),
+                     "m": 0.01 * rng.randn(dim, 1)}, handle)
+    return str(net_path), str(whit_path)
+
+
+def test_validate_stage_with_clahe_matches_jax(alexnet_checkpoint,
+                                               monkeypatch):
+    """The paper's CLAHE scenario: AlexNet-GeM, ``apply_clahe`` in the
+    transform, multiscale, Lw. Both packages run their device chains."""
+    net_path, whit_path = alexnet_checkpoint
+    jax_ranks = _recording(jax_scores, monkeypatch)
+    port_ranks = _recording(port_scores, monkeypatch)
+
+    def scenario():
+        params = _scenario(net_path, whit_path)
+        criterion = params["validation"]["roxford5k"]["criterion"]
+        criterion["transforms"] = \
+            "pil2np | apply_clahe:4:lab:8 | totensor | normalize"
+        return params
+
+    reference, = jax_validate(scenario(), ())
+    metadata, = validate(scenario(), (), device="cpu")
+
+    keys = metadata["eval"].keys()
+    assert keys == reference["eval"].keys()
+    assert len(jax_ranks) == len(port_ranks) == 1
+    np.testing.assert_array_equal(jax_ranks[0], port_ranks[0])
+    for key in keys:
+        assert metadata["eval"][key] == reference["eval"][key], key

@@ -8,7 +8,11 @@ Phases, one line each with its wall time:
   2. build: nvcc builds every CUDA source of the port into
      build/mdir_tpu_torch/ (seconds, registers, shared memory);
   3. kernel: the GeM+L2N kernel against its plain PyTorch version on the
-     card, at the extraction shapes, ragged valid extents included;
+     card, at the extraction shapes, ragged valid extents included, at
+     p = 1, 2.5, 3 and 4.7 (the kernel multiplies out p = 1 and 3 and
+     takes exp2/log2 for any other); and the GeM head under autograd on
+     the card (its plain version: the kernel is eval-only) against the
+     CPU's gradients;
   4. main path: the validate path of a ResNet101-GeM (2048-d, random weights
      from a seed, p = 3, Lw whitening, scales 1, 2^-1/2, 1/2, image size
      1024) on 32 database and 8 query uint8 images made from a seed:
@@ -19,8 +23,11 @@ Phases, one line each with its wall time:
      (chunk x scale) forward, and the same run with the plain pool on the
      card must agree within 1e-4 with the same top-10 ranks; a small input
      must agree with the CPU run of the same network;
-  5. the kernel at the main path's own shapes, and its time against its
-     plain version and its bound;
+  5. the kernel at the main path's own shapes and the four p, and its time
+     against its plain version and its bound (and its share of the bound)
+     at the path's largest input at the path's p = 3 and at p = 2.5, and at
+     its largest input of fewer than FULL_BATCH images (the small-batch
+     launch);
   6. the lab CLAHE chain's kernels (lab_n, clahe_tile_luts, clahe_interp)
      against their plain versions on the card, bit-equal: lab_n on all
      256^3 RGB triples, the CLAHE kernels on ragged buckets (non-divisible,
@@ -36,7 +43,10 @@ Phases, one line each with its wall time:
      give a bit-equal chain output per chunk, descriptors within 1e-4 and
      the same top-10 ranks; a small input must agree with the CPU;
   8. the three kernels at the main path's own chunks, bit-equal to plain,
-     and their times against their plain versions and bounds.
+     and their times against their plain versions and bounds (and their
+     shares of the bounds); and, as in phase 5, the GeM+L2N kernel at
+     every input the CLAHE path gave it (VGG16's 512 channels) and the
+     four p, and its times there.
 Then one JSON line of kernels, the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}. Any failure raises (non-zero exit, no last
 line). Without a card, or without the port beside it, it fails at once.
@@ -45,6 +55,7 @@ import sys
 
 sys.dont_write_bytecode = True  # write nothing outside build/mdir_tpu_torch
 
+import functools  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import pickle  # noqa: E402
@@ -60,6 +71,11 @@ SEED = 0
 IMAGE_SIZE = 1024
 SCALES = [1, 2 ** -0.5, 0.5]
 KERNEL_SHAPES = [(16, 2048, 32, 24), (16, 2048, 23, 17), (3, 2048, 7, 9)]
+P_VALUES = (1.0, 2.5, 3.0, 4.7)  # GeM exponents the kernel is held at
+PATH_P, OTHER_P = 3.0, 2.5  # the path's p (timed) and a non-integer p
+# the kernels' "redesigned" tag in the kernels line: where the records
+# (PERF.md §6) hold their earlier times
+REDESIGNED = {"gem_l2n": "PR 6", "lab_n": "PR 6"}
 RTOL, ATOL = 1e-5, 1e-6  # kernel against its plain version
 DESC_ATOL = 1e-4  # descriptors, kernel pool against plain pool
 TIMED_LAUNCHES = 100
@@ -115,18 +131,39 @@ def nvidia_smi():
 
 
 def cuda_ms(fn, launches=TIMED_LAUNCHES, warmup=5):
-    """Mean device time of ``fn`` over ``launches`` calls (CUDA events)."""
-    for _ in range(warmup):
+    """Mean device time of ``fn`` over ``launches`` calls (CUDA events).
+
+    A spin kernel holds the stream while the host queues the timed calls,
+    so the host's time between launches does not count: a small kernel
+    reads its own time, not its wrapper's."""
+    fn()  # the first call may load a library or plan a convolution
+    t = time.perf_counter()
+    for _ in range(warmup - 1):
         fn()
+    torch.cuda.synchronize()
+    host_s = (time.perf_counter() - t) / max(warmup - 1, 1)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2 * host_s * launches * spin_cycles_per_s()))
     start.record()
     for _ in range(launches):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / launches
+
+
+@functools.lru_cache(maxsize=1)
+def spin_cycles_per_s():
+    """Cycles per second of ``torch.cuda._sleep``'s spin."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(1000)
+    start.record()
+    torch.cuda._sleep(10 ** 7)
+    end.record()
+    torch.cuda.synchronize()
+    return 1e10 / start.elapsed_time(end)
 
 
 def gem_bound_ms(shape, valid):
@@ -151,13 +188,104 @@ def ragged_valid(gen, n, h, w, device):
     return valid.to(torch.int32).to(device)
 
 
-def kernel_against_plain(pooling_kernel, gem_l2n_plain, x, valid, p):
-    with torch.no_grad():
-        out = pooling_kernel.gem_l2n(x, valid, p)
-        ref = gem_l2n_plain(x, valid, p)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL)
-    return float((out - ref).abs().max())
+def kernel_against_plain(pooling_kernel, gem_l2n_plain, x, valid):
+    """The largest |kernel - plain| over P_VALUES; fails outside the
+    tolerance."""
+    err = 0.0
+    for value in P_VALUES:
+        p = torch.tensor([value], device=x.device)
+        with torch.no_grad():
+            out = pooling_kernel.gem_l2n(x, valid, p)
+            ref = gem_l2n_plain(x, valid, p)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL)
+        err = max(err, float((out - ref).abs().max()))
+    return err
+
+
+def recording_pool(launch, sink):
+    """``launch`` (the pool's wrapper) that also records each input's shape
+    and valid extents in ``sink``."""
+    def fn(x, valid_hw, p, eps=1e-6):
+        sink.append((tuple(x.shape), valid_hw.clone()))
+        return launch(x, valid_hw, p, eps=eps)
+    return fn
+
+
+def gem_path_phase(tag, pooling_kernel, gem_l2n_plain, inputs, gen, device):
+    """The kernel at every distinct (shape, valid extents) input a main path
+    gave it, on random values, at P_VALUES against plain; then its time at
+    the path's largest input (at PATH_P and OTHER_P, against plain and the
+    bound) and at its largest input of fewer than FULL_BATCH images, which
+    takes the small-batch launch."""
+    distinct = {}
+    for shape, valid in inputs:
+        distinct.setdefault((shape, tuple(map(tuple, valid.tolist()))),
+                            valid)
+    err = 0.0
+    for (shape, _), valid in distinct.items():
+        x = torch.rand(shape, generator=gen).to(device)
+        err = max(err, kernel_against_plain(pooling_kernel, gem_l2n_plain,
+                                            x, valid))
+    p, other_p = (torch.tensor([v], device=device)
+                  for v in (PATH_P, OTHER_P))
+
+    def timed(shape, valid, p_values):
+        x = torch.rand(shape, generator=gen).to(device)
+        with torch.no_grad():
+            times = [cuda_ms(lambda: pooling_kernel.gem_l2n(x, valid, q))
+                     for q in p_values]
+            plain_ms = cuda_ms(lambda: gem_l2n_plain(x, valid, p))
+        bound_ms, bound_by = gem_bound_ms(shape, valid.cpu())
+        return {"shape": list(shape), "ms": times[0], "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "bound_share": bound_ms / times[0]}, times[1:]
+
+    def size(shape_valid):
+        return int(np.prod(shape_valid[0]))
+
+    largest, (other_ms,) = timed(*max(inputs, key=size), (p, other_p))
+    largest["ms_p%g" % OTHER_P] = other_ms
+    say("time", "gem_l2n, %s path: %d inputs of shapes %s x %d p against "
+        "plain, max err %.2e; at its largest %s: %.4f ms (%.0f%% of bound) "
+        "at p = %g, %.4f ms (%.0f%%) at p = %g; plain %.4f ms, bound %.4f "
+        "ms (%s)"
+        % (tag, len(distinct), sorted({shape for shape, _ in distinct}),
+           len(P_VALUES), err, tuple(largest["shape"]),
+           largest["ms"], 100 * largest["bound_share"], PATH_P, other_ms,
+           100 * largest["bound_ms"] / other_ms, OTHER_P,
+           largest["plain_ms"], largest["bound_ms"], largest["bound_by"]))
+    small_inputs = [sv for sv in inputs
+                    if sv[0][0] < pooling_kernel.FULL_BATCH]
+    small = None
+    if small_inputs:
+        small = timed(*max(small_inputs, key=size), (p,))[0]
+        say("time", "gem_l2n, %s path, small-batch launch at %s: %.4f ms "
+            "(%.0f%% of bound %.4f ms) at p = %g"
+            % (tag, tuple(small["shape"]), small["ms"],
+               100 * small["bound_share"], small["bound_ms"], PATH_P))
+    return {"max_abs_err": err, "timed": largest, "small_batch": small}
+
+
+def head_gradients_phase(device, gen):
+    """The GeM head under autograd on the card (its plain version: the
+    kernel is eval-only) against the same head on the CPU."""
+    from mdir_tpu_torch.models.retrievalnet import GeMPoolL2N
+
+    x = torch.rand((3, 64, 7, 9), generator=gen)
+    valid = torch.tensor([[7, 9], [3, 4], [1, 1]], dtype=torch.int32)
+    weights = torch.randn((3, 64), generator=gen)
+    grads = []
+    for where in (device, torch.device("cpu")):
+        head = GeMPoolL2N(p_init=OTHER_P).to(where)
+        xs = x.to(where).requires_grad_()
+        out = head(xs, valid.to(where))
+        (out * weights.to(where)).sum().backward()
+        grads.append((xs.grad.cpu(), head.p.grad.cpu()))
+    for card, cpu in zip(*grads):
+        torch.testing.assert_close(card, cpu, rtol=RTOL, atol=ATOL)
+    say("kernel", "GeM head under autograd on the card (plain version): "
+        "d/dx and d/dp equal to the CPU's within rtol %g" % RTOL)
 
 
 def make_images(rng):
@@ -336,6 +464,7 @@ def clahe_path_phase(device, db, queries, gnd, rng):
         model=dict(CLAHE_MODEL), runtime=runtime), frozen=True)
     transform = initialize_transforms(CLAHE_TRANSFORM,
                                       (model.meta["mean"], model.meta["std"]))
+    gem_in = []
 
     def run_path(net, images_sets, wrap_chain=None):
         """Descriptors, ranks and chunks of the path through ``net``."""
@@ -371,9 +500,11 @@ def clahe_path_phase(device, db, queries, gnd, rng):
         return wrap
 
     # warm-up (cuDNN plans, allocator) that also records each chunk's
-    # chain input and output
+    # chain input and output, and the pool's inputs
     chain_out, chain_in = [], []
-    run_path(network, (db, queries), recording(chain_out, chain_in))
+    with mock.patch.object(pooling_kernel, "gem_l2n",
+                           recording_pool(pooling_kernel.gem_l2n, gem_in)):
+        run_path(network, (db, queries), recording(chain_out, chain_in))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     events = []
@@ -448,7 +579,7 @@ def clahe_path_phase(device, db, queries, gnd, rng):
     check(cross_err <= DESC_ATOL, ("CLAHE path, card vs CPU", cross_err))
     say("clahe", "small input, card against CPU: max |desc diff| %.2e"
         % cross_err)
-    return {"launches": launches, "inputs": chain_in,
+    return {"launches": launches, "inputs": chain_in, "gem_inputs": gem_in,
             "grid": chain_from_transform(transform).clahe_params[1]}
 
 
@@ -481,10 +612,12 @@ def clahe_timing_phase(clahe, lab_trilinear, inputs, grid):
         ms = cuda_ms(kernel)
         plain_ms = cuda_ms(plain, launches=10, warmup=2)
         entries[name] = {"ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": bound_ms, "bound_by": bound_by}
-        say("time", "%s at %s (main path's largest chunk): kernel %.4f ms, "
-            "plain %.4f ms, bound %.4f ms (%s)"
-            % (name, tuple(batch.shape), ms, plain_ms, bound_ms, bound_by))
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "bound_share": bound_ms / ms}
+        say("time", "%s at %s (main path's largest chunk): kernel %.4f ms "
+            "(%.0f%% of bound), plain %.4f ms, bound %.4f ms (%s)"
+            % (name, tuple(batch.shape), ms, 100 * bound_ms / ms, plain_ms,
+               bound_ms, bound_by))
     say("time", "lab_n, clahe_tile_luts, clahe_interp bit-equal to plain at "
         "all %d main-path chunks" % len(inputs))
     return entries
@@ -527,15 +660,15 @@ def main():
 
     # 3. kernel against plain at the extraction shapes
     gen = torch.Generator().manual_seed(SEED)
-    p = torch.tensor([3.0], device=device)
     max_err = 0.0
     for shape in KERNEL_SHAPES:
         x = torch.rand(shape, generator=gen).to(device)
         valid = ragged_valid(gen, shape[0], shape[2], shape[3], device)
-        err = kernel_against_plain(pooling_kernel, gem_l2n_plain, x, valid, p)
+        err = kernel_against_plain(pooling_kernel, gem_l2n_plain, x, valid)
         max_err = max(max_err, err)
-        say("kernel", "gem_l2n %s ragged: max |kernel - plain| %.2e"
-            % (shape, err))
+        say("kernel", "gem_l2n %s ragged, p in %s: max |kernel - plain| "
+            "%.2e" % (shape, P_VALUES, err))
+    head_gradients_phase(device, gen)
 
     # 4. the main path
     rng = np.random.RandomState(SEED)
@@ -576,15 +709,10 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     shapes_seen = []
-    launch = pooling_kernel.gem_l2n
-
-    def recording(x, valid_hw, p, eps=1e-6):
-        shapes_seen.append((tuple(x.shape), valid_hw.clone()))
-        return launch(x, valid_hw, p, eps=eps)
-
     pooling_kernel.reset_launches()
     t = time.perf_counter()
-    with mock.patch.object(pooling_kernel, "gem_l2n", recording):
+    with mock.patch.object(pooling_kernel, "gem_l2n", recording_pool(
+            pooling_kernel.gem_l2n, shapes_seen)):
         vecs, qvecs, ranks, chunks = run_path()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t
@@ -630,31 +758,17 @@ def main():
     say("main", "small input, card against CPU: max |desc diff| %.2e"
         % cross_err)
 
-    # 5. the kernel at the main path's shapes; time against plain and bound
-    distinct = {}
-    for shape, valid in shapes_seen:
-        distinct.setdefault((shape, tuple(map(tuple, valid.tolist()))),
-                            valid)
-    for (shape, _), valid in distinct.items():
-        x = torch.rand(shape, generator=gen).to(device)
-        max_err = max(max_err, kernel_against_plain(
-            pooling_kernel, gem_l2n_plain, x, valid, p))
-    shape, valid = max(shapes_seen, key=lambda sv: int(np.prod(sv[0])))
-    x = torch.rand(shape, generator=gen).to(device)
-    with torch.no_grad():
-        ms = cuda_ms(lambda: pooling_kernel.gem_l2n(x, valid, p))
-        plain_ms = cuda_ms(lambda: gem_l2n_plain(x, valid, p))
-    bound_ms, bound_by = gem_bound_ms(shape, valid.cpu())
-    say("time", "gem_l2n at %s (main path's largest): kernel %.4f ms, plain "
-        "%.4f ms, bound %.4f ms (%s); %d main-path shapes checked, max "
-        "err %.2e" % (shape, ms, plain_ms, bound_ms, bound_by, len(distinct),
-                      max_err))
+    # 5. the kernel at the main path's inputs; time against plain and bound
+    resnet_pool = gem_path_phase("ResNet101", pooling_kernel, gem_l2n_plain,
+                                 shapes_seen, gen, device)
 
     # 6-8. the lab CLAHE chain's kernels and the CLAHE main path
     clahe_kernel_phase(device, clahe, lab_trilinear)
     path = clahe_path_phase(device, db, queries, gnd, rng)
     timed = clahe_timing_phase(clahe, lab_trilinear, path["inputs"],
                                path["grid"])
+    vgg_pool = gem_path_phase("VGG16 CLAHE", pooling_kernel, gem_l2n_plain,
+                              path["gem_inputs"], gen, device)
     sources = {"lab_n": ("mdir_tpu_torch/csrc/lab_n.cu",
                          "mdir_tpu/ops/lab_trilinear.py:493",
                          ["mdir_tpu/ops/lab_trilinear.py:359"],
@@ -672,16 +786,23 @@ def main():
         "name": "gem_l2n", "route": "cuda",
         "source": "mdir_tpu_torch/csrc/gem_l2n.cu",
         "replaces": "mdir_tpu/ops/pooling_pallas.py:59",
-        "launches": launches, "max_abs_err": max_err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None,
-        "clahe_path_launches": path["launches"]["gem_l2n"]}]
+        "launches": launches,
+        "max_abs_err": max(max_err, resnet_pool["max_abs_err"],
+                           vgg_pool["max_abs_err"]),
+        **resnet_pool["timed"], "library_ms": None,
+        "small_batch": resnet_pool["small_batch"],
+        "clahe_path_launches": path["launches"]["gem_l2n"],
+        "clahe_path": dict(vgg_pool["timed"],
+                           small_batch=vgg_pool["small_batch"])}]
     for name, (source, replaces, also, wrappers) in sources.items():
         kernels.append(dict(
             {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": path["launches"][name],
              "max_abs_err": 0.0}, **timed[name], library_ms=None,
             also_replaces=also, off_path_wrappers=wrappers))
+    for entry in kernels:
+        if entry["name"] in REDESIGNED:
+            entry["redesigned"] = REDESIGNED[entry["name"]]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

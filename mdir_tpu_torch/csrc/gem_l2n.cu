@@ -9,23 +9,50 @@
 //
 // Bound: memory. The function reads every valid feature cell once and writes
 // N*C floats; it does about three float operations per cell read, far below
-// what the card computes in the time the bytes take. The design keeps each
-// cell to one read and uses the whole card:
-//   1. gem_pool_kernel: one warp per (n, c) plane. The lanes walk the plane's
-//      valid cells as one flat index (consecutive lanes on consecutive cells
-//      of a row, so the loads coalesce along W), accumulate in f32 registers
-//      and reduce with shuffles. Padded cells are never read. N*C warps fill
-//      the card (32,768 at N = 16, C = 2048).
-//   2. l2n_kernel: one block per image sums pooled^2 over C and divides.
+// what the card computes in the time the bytes take. So the design is about
+// keeping enough bytes in flight and spending few instructions per cell:
+//   * One launch. Each image is a thread-block cluster; each block pools a
+//     contiguous group of channels, whose planes are one contiguous span of
+//     NCHW, and keeps its pooled values in shared memory. The blocks sum
+//     their squares across the cluster through distributed shared memory
+//     and each writes its normalised slice: no second launch and no pooled
+//     (N, C) round trip through device memory. The wrapper picks the
+//     cluster (ops/pooling_kernel.py::launch_geometry): at N = 16 images,
+//     16 blocks of 256 threads an image; below 12 images, 8 blocks of 1024.
+//     A cluster's blocks must share a GPC, so whole clusters of large
+//     blocks do not tile the 132 SMs: at N = 16, 8 blocks of 16 warps an
+//     image left some SMs idle and gave others two blocks; 16 smaller
+//     blocks an image spread better.
+//   * One warp per plane, walking the valid rectangle only (rows < vh,
+//     columns < vw) with row and column counters that step by the warp's
+//     width without division. Rows whose width is a multiple of 4 (and a
+//     16-byte aligned tensor) are read as float4, the rest as floats; each
+//     lane issues 4 float4 (or 8 float) loads before it uses any. A float4
+//     that straddles the column edge is read whole (one sector) and its
+//     outside cells masked; no vector wholly outside the valid extent is
+//     read.
+//   * A cheap power: p is read once; p = 3 (the path's) and p = 1 take a
+//     block-uniform branch that multiplies out, any other p is
+//     exp2f(p * __log2f(x)).
+//     Error bound of that path (CUDA Math API: __log2f has at most 2^-22
+//     absolute error on [0.5, 2] and 2 ulp elsewhere; exp2f 2 ulp): for a
+//     cell x in [0.5, 1] the relative error of x^p is below
+//     p * ln2 * 2^-22 plus a few ulp of rounding (about 1.2e-6 at p = 4.7);
+//     for smaller x it grows with |log2 x| (about 1.5e-5 at x = 2^-20,
+//     p = 4.7), but such a cell adds at most x^p to a sum of cells that are
+//     mostly near 1. The root (acc/count)^(1/p), once per channel, is the
+//     accurate powf.
 // The TPU kernel carried its sum across a sequential grid in scratch memory;
-// blocks here run in no order, so nothing is carried between them.
-// powf is the accurate libdevice function (no --use_fast_math). Eval only: the
-// TPU kernel has no gradient either.
+// blocks here run in no order, and the cluster is what ties an image's
+// blocks together. Eval only: the TPU kernel has no gradient either.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-constexpr int kWarpsPerBlock = 8;
-constexpr int kL2nThreads = 256;
+namespace cg = cooperative_groups;
+
+constexpr int kMaxThreads = 1024;
+constexpr int kMaxWarps = kMaxThreads / 32;
 
 static __device__ __forceinline__ float warp_sum(float v) {
   for (int offset = 16; offset > 0; offset >>= 1) {
@@ -34,88 +61,222 @@ static __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-static __global__ void gem_pool_kernel(const float* __restrict__ x,
-                                       const int* __restrict__ valid_hw,
-                                       const float* __restrict__ p_ptr,
-                                       float* __restrict__ pooled, int n,
-                                       int c, int h, int w, float eps) {
-  const int lane = threadIdx.x & 31;
-  const long long plane =
-      static_cast<long long>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (plane >= static_cast<long long>(n) * c) {
-    return;
-  }
-  const int img = static_cast<int>(plane / c);
-  const int vh = min(max(valid_hw[2 * img], 0), h);
-  const int vw = min(max(valid_hw[2 * img + 1], 0), w);
-  const int cells = vh * vw;
-  const float p = *p_ptr;
-  const float* base = x + plane * h * w;
-
-  float acc = 0.0f;
-  for (int i = lane; i < cells; i += 32) {
-    const int row = i / vw;
-    const int col = i - row * vw;
-    acc += powf(fmaxf(__ldg(base + row * w + col), eps), p);
-  }
-  acc = warp_sum(acc);
-  if (lane == 0) {
-    const float count = static_cast<float>(max(cells, 1));
-    pooled[plane] = powf(acc / count, 1.0f / p);
+// x^p for x >= eps > 0; kPow is p itself (1 or 3), or 0 for any other p.
+template <int kPow>
+static __device__ __forceinline__ float pow_cell(float x, float p) {
+  if constexpr (kPow == 1) {
+    return x;
+  } else if constexpr (kPow == 3) {
+    return x * x * x;
+  } else {
+    return exp2f(p * __log2f(x));
   }
 }
 
-static __global__ void l2n_kernel(const float* __restrict__ pooled,
-                                  float* __restrict__ out, int c, float eps) {
-  __shared__ float partial[kL2nThreads / 32];
-  const float* row = pooled + static_cast<long long>(blockIdx.x) * c;
-  float* dst = out + static_cast<long long>(blockIdx.x) * c;
+template <int kVec>
+struct Cells {
+  float v[kVec];
+};
+
+template <int kVec>
+static __device__ __forceinline__ Cells<kVec> load_cells(const float* p) {
+  Cells<kVec> c;
+  if constexpr (kVec == 4) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    c.v[0] = q.x;
+    c.v[1] = q.y;
+    c.v[2] = q.z;
+    c.v[3] = q.w;
+  } else {
+    c.v[0] = __ldg(p);
+  }
+  return c;
+}
+
+// Where a lane starts in an image's valid rectangle of vh rows by vcols
+// vectors, and how far its position moves per step of 32 vectors: computed
+// once per thread, so the walk itself never divides.
+struct Walk {
+  int row0, col0, drow, dcol;
+};
+
+// The sum over one plane's valid cells of max(x, eps)^p, across the warp
+// (every lane ends with the whole sum). Each round, a lane loads kUnroll
+// vectors before it uses any; bit u * kVec + k of `inside` says whether
+// cell k of vector u was loaded and lies inside the extent.
+template <int kPow, int kVec>
+static __device__ __forceinline__ float pool_plane(
+    const float* __restrict__ plane, int w, int vh, int vw, int vcols,
+    const Walk& walk, float eps, float p) {
+  constexpr int kUnroll = kVec == 4 ? 4 : 8;
+  constexpr unsigned int kAll = (1u << kVec) - 1;
+  float acc = 0.0f;
+  int row = walk.row0;
+  int col = walk.col0;
+  while (row < vh) {
+    Cells<kVec> cells[kUnroll];
+    unsigned int inside = 0;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (row < vh) {
+        cells[u] = load_cells<kVec>(plane + row * w + col * kVec);
+        const int lim = vw - col * kVec;  // cells of the vector inside
+        inside |= (lim >= kVec ? kAll : (1u << lim) - 1) << (u * kVec);
+      }
+      col += walk.dcol;
+      row += walk.drow;
+      if (col >= vcols) {
+        col -= vcols;
+        ++row;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        if ((inside >> (u * kVec + k)) & 1u) {
+          acc += pow_cell<kPow>(fmaxf(cells[u].v[k], eps), p);
+        }
+      }
+    }
+  }
+  return warp_sum(acc);
+}
+
+// This block's channels [c0, c1) of image img: pooled values into `pooled`
+// (shared), and the sum of their squares returned to lane 0 of each warp.
+template <int kPow, int kVec>
+static __device__ __forceinline__ float pool_group(
+    const float* __restrict__ x, float* pooled, int img, int c, int c0,
+    int c1, int h, int w, int vh, int vw, float eps, float p) {
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  const int vcols = (vw + kVec - 1) / kVec;
+  const float count = static_cast<float>(max(vh * vw, 1));
+  const float inv_p = 1.0f / p;
+  Walk walk = {vh, 0, 0, 0};  // an empty extent: no row to walk
+  if (vh > 0 && vcols > 0) {
+    walk.row0 = lane / vcols;
+    walk.col0 = lane - walk.row0 * vcols;
+    walk.drow = 32 / vcols;
+    walk.dcol = 32 - walk.drow * vcols;
+  }
+  float sq = 0.0f;
+  for (int ch = c0 + static_cast<int>(threadIdx.x >> 5); ch < c1;
+       ch += warps) {
+    const float* plane =
+        x + (static_cast<long long>(img) * c + ch) * h * w;
+    const float acc =
+        pool_plane<kPow, kVec>(plane, w, vh, vw, vcols, walk, eps, p);
+    if (lane == 0) {
+      const float v = powf(acc / count, inv_p);
+      pooled[ch - c0] = v;
+      sq += v * v;
+    }
+  }
+  return sq;
+}
+
+template <int kVec>
+static __global__ void __launch_bounds__(kMaxThreads)
+    gem_l2n_kernel(const float* __restrict__ x,
+                   const int* __restrict__ valid_hw,
+                   const float* __restrict__ p_ptr, float* __restrict__ out,
+                   int c, int h, int w, int group, float eps) {
+  extern __shared__ float pooled[];  // this block's group of pooled values
+  __shared__ float warp_sq[kMaxWarps];
+  __shared__ float block_sq;
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned int blocks = cluster.num_blocks();
+  const unsigned int rank = cluster.block_rank();
+  const int img = static_cast<int>(blockIdx.x / blocks);
+  const int c0 = static_cast<int>(rank) * group;
+  const int c1 = min(c0 + group, c);
+  const int vh = min(max(valid_hw[2 * img], 0), h);
+  const int vw = min(max(valid_hw[2 * img + 1], 0), w);
+  const float p = *p_ptr;
+
+  float sq;
+  if (p == 1.0f) {
+    sq = pool_group<1, kVec>(x, pooled, img, c, c0, c1, h, w, vh, vw, eps, p);
+  } else if (p == 3.0f) {
+    sq = pool_group<3, kVec>(x, pooled, img, c, c0, c1, h, w, vh, vw, eps, p);
+  } else {
+    sq = pool_group<0, kVec>(x, pooled, img, c, c0, c1, h, w, vh, vw, eps, p);
+  }
+
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-
-  float sum = 0.0f;
-  for (int j = threadIdx.x; j < c; j += kL2nThreads) {
-    const float v = row[j];
-    sum += v * v;
-  }
-  sum = warp_sum(sum);
   if (lane == 0) {
-    partial[warp] = sum;
+    warp_sq[warp] = sq;
   }
   __syncthreads();
   if (warp == 0) {
-    sum = lane < kL2nThreads / 32 ? partial[lane] : 0.0f;
-    sum = warp_sum(sum);
+    sq = lane < static_cast<int>(blockDim.x >> 5) ? warp_sq[lane] : 0.0f;
+    sq = warp_sum(sq);
     if (lane == 0) {
-      partial[0] = sum;
+      block_sq = sq;
     }
   }
-  __syncthreads();
-  const float denom = sqrtf(partial[0]) + eps;
-  for (int j = threadIdx.x; j < c; j += kL2nThreads) {
-    dst[j] = row[j] / denom;
+  // every block's block_sq and pooled[] are written and visible
+  cluster.sync();
+  float total = 0.0f;  // the same sum, in the same order, in every block
+  for (unsigned int r = 0; r < blocks; ++r) {
+    total += *cluster.map_shared_rank(&block_sq, r);
   }
+  const float denom = sqrtf(total) + eps;
+  float* dst = out + static_cast<long long>(img) * c + c0;
+  for (int j = threadIdx.x; j < c1 - c0; j += blockDim.x) {
+    dst[j] = pooled[j] / denom;
+  }
+  // no block leaves (and frees its shared memory) while another still
+  // reads its block_sq
+  cluster.sync();
 }
 
 // x: (n, c, h, w) contiguous f32; valid_hw: (n, 2) int32; p: one f32;
-// pooled: (n, c) scratch; out: (n, c). Launches on `stream` and returns
-// cudaGetLastError() after the launches (0 when both were accepted).
+// out: (n, c). One launch of n clusters of `cluster` blocks of `threads`
+// threads; block r of an image pools channels [r*group, min((r+1)*group, c)).
+// vec is 4 (float4 loads: w % 4 == 0 and x 16-byte aligned) or 1. The
+// geometry comes from the wrapper (ops/pooling_kernel.py::launch_geometry).
+// Returns the launch's CUDA error (0 when it was accepted).
 extern "C" int gem_l2n_f32(const float* x, const int* valid_hw, const float* p,
-                           float* pooled, float* out, int n, int c, int h,
-                           int w, float eps, void* stream) {
+                           float* out, int n, int c, int h, int w, int cluster,
+                           int group, int threads, int vec, float eps,
+                           void* stream) {
   if (n <= 0 || c <= 0) {
     return 0;
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long planes = static_cast<long long>(n) * c;
-  const unsigned int blocks = static_cast<unsigned int>(
-      (planes + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  gem_pool_kernel<<<blocks, kWarpsPerBlock * 32, 0, s>>>(
-      x, valid_hw, p, pooled, n, c, h, w, eps);
-  cudaError_t err = cudaGetLastError();
+  if ((vec != 4 && vec != 1) || threads > kMaxThreads || threads % 32 != 0 ||
+      cluster < 1 || static_cast<long long>(cluster) * group < c) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  void (*kernel)(const float*, const int*, const float*, float*, int, int,
+                 int, int, float) =
+      vec == 4 ? gem_l2n_kernel<4> : gem_l2n_kernel<1>;
+  if (cluster > 8) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) {
+      return static_cast<int>(err);
+    }
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned int>(cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned int>(n) * cluster);
+  config.blockDim = dim3(static_cast<unsigned int>(threads));
+  config.dynamicSmemBytes = static_cast<size_t>(group) * sizeof(float);
+  config.stream = static_cast<cudaStream_t>(stream);
+  config.attrs = attr;
+  config.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&config, kernel, x, valid_hw, p, out,
+                                       c, h, w, group, eps);
   if (err != cudaSuccess) {
     return static_cast<int>(err);
   }
-  l2n_kernel<<<n, kL2nThreads, 0, s>>>(pooled, out, c, eps);
   return static_cast<int>(cudaGetLastError());
 }

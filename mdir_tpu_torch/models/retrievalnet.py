@@ -4,7 +4,9 @@ The component order of cirtorch's ``imageretrievalnet.py`` and of
 ``mdir_tpu/models/retrievalnet.py``, in NCHW. Output is (N, D) rows. GeM's
 ``p`` is a learnable parameter (``pool.p``). The GeM head is the masked
 GeM+L2N kernel wrapper (``ops/pooling_kernel.gem_l2n``): on the card it is
-the CUDA kernel, on the CPU its plain version. MAC and SPoC heads are plain
+the CUDA kernel, on the CPU its plain version. The kernel is eval-only, so
+where a gradient is wanted the head runs the plain version on either, as the
+JAX package trains through its XLA GeM. MAC and SPoC heads are plain
 PyTorch. Regional pooling (RMAC, Rpool) comes with a later slice.
 """
 import torch
@@ -24,6 +26,9 @@ class GeMPoolL2N(nn.Module):
         self.p = nn.Parameter(torch.full((1,), float(p_init)))
 
     def forward(self, x, valid_hw):
+        if torch.is_grad_enabled() and (x.requires_grad
+                                        or self.p.requires_grad):
+            return pool_ops.gem_l2n_plain(x, valid_hw, self.p, eps=self.eps)
         return pooling_kernel.gem_l2n(x, valid_hw, self.p, eps=self.eps)
 
 

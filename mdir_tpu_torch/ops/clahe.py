@@ -330,12 +330,14 @@ def clahe_tile_luts(vals, aux, grid):
                        device=vals.device)
     if b == 0:
         return luts
-    stream = torch.cuda.current_stream(vals.device).cuda_stream
-    err = _library("clahe_tile_luts_i32")(
-        vals.data_ptr(), aux["row_src"].data_ptr(),
-        aux["col_src"].data_ptr(), aux["th"].data_ptr(),
-        aux["tw"].data_ptr(), aux["clim"].data_ptr(),
-        aux["scale"].data_ptr(), luts.data_ptr(), b, bh, bw, gh, gw, stream)
+    with torch.cuda.device(vals.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _library("clahe_tile_luts_i32")(
+            vals.data_ptr(), aux["row_src"].data_ptr(),
+            aux["col_src"].data_ptr(), aux["th"].data_ptr(),
+            aux["tw"].data_ptr(), aux["clim"].data_ptr(),
+            aux["scale"].data_ptr(), luts.data_ptr(), b, bh, bw, gh, gw,
+            stream)
     if err != 0:
         raise RuntimeError("clahe_tile_luts kernel launch failed with CUDA "
                            "error %d" % err)
@@ -366,10 +368,12 @@ def clahe_interp(vals, luts, aux, grid):
     out = torch.empty((b, bh, bw), dtype=torch.float32, device=vals.device)
     if out.numel() == 0:
         return out
-    stream = torch.cuda.current_stream(vals.device).cuda_stream
-    err = _library("clahe_interp_i32")(
-        vals.data_ptr(), luts.data_ptr(), aux["inv_th"].data_ptr(),
-        aux["inv_tw"].data_ptr(), out.data_ptr(), b, bh, bw, gh, gw, stream)
+    with torch.cuda.device(vals.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _library("clahe_interp_i32")(
+            vals.data_ptr(), luts.data_ptr(), aux["inv_th"].data_ptr(),
+            aux["inv_tw"].data_ptr(), out.data_ptr(), b, bh, bw, gh, gw,
+            stream)
     if err != 0:
         raise RuntimeError("clahe_interp kernel launch failed with CUDA "
                            "error %d" % err)

@@ -17,7 +17,8 @@ point is left on the card.
 ``lab_n`` is the wrapper of the CUDA kernel ``csrc/lab_n.cu``, which replaces
 the Pallas TPU kernel ``lab_n_pallas`` (``_lab_v3_kernel``); the TPU's one-hot
 MXU contraction is a way around slow gathers, and the card gathers well, so
-the kernel reads the 8 corners directly. On a CPU tensor the wrapper computes
+the kernel reads the corners directly, two at a time from the corner-pair
+table of ``_kernel_tables``. On a CPU tensor the wrapper computes
 ``lab_n_plain``; on a CUDA tensor it launches the kernel or raises.
 ``lab_chan``, ``lab_l_u8`` and ``lab_normspace`` derive the chain's planes
 from its output.
@@ -63,7 +64,35 @@ def _u8_corner_tables():
     return (cx >> 9).astype(np.int32), ((cx & 511) >> 5).astype(np.int32)
 
 
+def pair_index(ix, iy, iz):
+    """Entry of lattice node (ix, iy, iz) in the corner-pair table: the
+    entries lie in 2 x 2 x 2 bricks of 8 consecutive entries (one 128-byte
+    line), 17 bricks an axis."""
+    brick = ((ix >> 1) * 17 + (iy >> 1)) * 17 + (iz >> 1)
+    return brick * 8 + ((ix & 1) << 2) + ((iy & 1) << 1) + (iz & 1)
+
+
+@functools.lru_cache(maxsize=1)
+def _packed_tables():
+    """The kernel's host tables: (256,) int32 ``tx | w << 8`` per u8 value,
+    and the (17^3 * 8, 8) int16 corner-pair table. Entry ``pair_index(ix,
+    iy, iz)`` holds, per channel L, a, b, the pair (node[ix, iy, iz],
+    node[ix, iy, min(iz + 1, 32)]), then two zeros: 16 bytes, one aligned
+    load for two corners. The entries of the bricks' unused half at 33 are
+    zero."""
+    tx, w = _u8_corner_tables()
+    node = _node_lut3()
+    i = np.arange(33)
+    ix, iy, iz = np.meshgrid(i, i, i, indexing="ij")
+    pairs = np.zeros((17 ** 3 * 8, 8), np.int16)
+    at = pair_index(ix, iy, iz)
+    pairs[at, 0:6:2] = node
+    pairs[at, 1:6:2] = node[ix, iy, np.minimum(iz + 1, 32)]
+    return (tx | (w << 8)).astype(np.int32), pairs
+
+
 _DEVICE_TABLES = {}
+_KERNEL_TABLES = {}
 
 
 def _tables(device):
@@ -76,6 +105,15 @@ def _tables(device):
             torch.from_numpy(np.ascontiguousarray(a)).to(device)
             for a in (tx, w, _node_lut3()))
     return _DEVICE_TABLES[key]
+
+
+def _kernel_tables(device):
+    """``_packed_tables`` on ``device``, uploaded once per device."""
+    key = str(device)
+    if key not in _KERNEL_TABLES:
+        _KERNEL_TABLES[key] = tuple(torch.from_numpy(a).to(device)
+                                    for a in _packed_tables())
+    return _KERNEL_TABLES[key]
 
 
 def _check_batch(batch_u8):
@@ -117,7 +155,7 @@ def _library():
     fn = _build.load("lab_n").cdll.lab_n_u8
     if fn.argtypes is None:
         ptr = ctypes.c_void_p
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong, ptr]
+        fn.argtypes = [ptr, ptr, ptr, ptr, ctypes.c_longlong, ptr]
         fn.restype = ctypes.c_int
     return fn
 
@@ -126,7 +164,10 @@ def lab_n(batch_u8):
     """(B, H, W, 3) uint8 RGB -> (B, H, W, 3) int32 lattice n (L, a, b).
 
     CPU tensor: ``lab_n_plain``. CUDA tensor: the kernel of
-    ``csrc/lab_n.cu`` (bit-equal to the plain version), or an error.
+    ``csrc/lab_n.cu`` (bit-equal to the plain version), or an error. The
+    kernel moves 4 pixels a thread with 4- and 16-byte accesses where the
+    input is 4-byte aligned (the output and the tables always are), and
+    byte by byte where it is not.
     """
     if batch_u8.device.type == "cpu":
         return lab_n_plain(batch_u8)
@@ -136,15 +177,18 @@ def lab_n(batch_u8):
     _check_batch(batch_u8)
     if not batch_u8.is_contiguous():
         raise ValueError("lab_n needs a contiguous (B, H, W, 3) tensor")
-    tx, w, node = _tables(batch_u8.device)
+    tw, pairs = _kernel_tables(batch_u8.device)
     out = torch.empty(batch_u8.shape, dtype=torch.int32,
                       device=batch_u8.device)
     pixels = batch_u8.numel() // 3
     if pixels == 0:
         return out
-    stream = torch.cuda.current_stream(batch_u8.device).cuda_stream
-    err = _library()(batch_u8.data_ptr(), tx.data_ptr(), w.data_ptr(),
-                     node.data_ptr(), out.data_ptr(), pixels, stream)
+    if (out.data_ptr() | pairs.data_ptr()) % 16:
+        raise RuntimeError("lab_n needs 16-byte aligned output and tables")
+    with torch.cuda.device(batch_u8.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _library()(batch_u8.data_ptr(), tw.data_ptr(),
+                         pairs.data_ptr(), out.data_ptr(), pixels, stream)
     if err != 0:
         raise RuntimeError("lab_n kernel launch failed with CUDA error %d"
                            % err)

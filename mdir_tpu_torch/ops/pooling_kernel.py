@@ -3,14 +3,18 @@
 The kernel replaces the Pallas TPU kernel
 ``mdir_tpu/ops/pooling_pallas.py::_gem_kernel`` (``gem_l2n_pallas``). It is
 memory-bound: it reads each valid feature cell once and writes N*C floats, so
-its least time is those bytes over the card's memory rate. One warp per
-(image, channel) plane reduces only the valid cells, reading along W; a
-second launch, one block per image, divides by the L2 norm (see the source).
+its least time is those bytes over the card's memory rate. It is one launch:
+each image is a cluster of blocks, each block pools a contiguous group of
+channels with one warp per plane, and the blocks of a cluster share their
+sums of squares to divide by the L2 norm (see the source).
+``launch_geometry`` picks the cluster, the channel group and the load width
+from the shape.
 
 For a tensor on the CPU the wrapper computes the plain version
 (``pooling.gem_l2n_plain``); for a CUDA tensor it launches the kernel or
 raises. It is eval-only, like the TPU kernel, which has no gradient.
 """
+import collections
 import ctypes
 
 import torch
@@ -20,10 +24,52 @@ from .pooling import gem_l2n_plain
 
 launches = 0  # kernel launches since the last reset_launches()
 
+# (blocks per image, threads per block) from FULL_BATCH images up, and
+# below: of the launches ``kernel_times.py`` tries at the main
+# paths' maps, the fastest or within 5 % of it on an H100 (PERF.md §6); a
+# cluster of 16 is above the portable 8, and the kernel allows it
+FULL_BATCH = 12
+FULL_BATCH_LAUNCH = (16, 256)
+SMALL_BATCH_LAUNCH = (8, 1024)
+MAX_GROUP = 12288  # pooled floats a block keeps in 48 KB of shared memory
+
+
+# cluster: blocks per image (one thread-block cluster); group: channels per
+# block; load_bytes: 16 (float4) or 4 (float); threads: per block
+Geometry = collections.namedtuple("Geometry",
+                                  "cluster group load_bytes threads")
+
 
 def reset_launches():
     global launches
     launches = 0
+
+
+def launch_geometry(n, c, h, w, aligned16=True):
+    """The kernel's launch for an (n, c, h, w) float32 input.
+
+    One cluster of ``cluster`` blocks per image; block r pools
+    channels [r * group, min((r + 1) * group, c)), so every channel is
+    pooled once and no block is empty. Rows load as float4 (16 bytes) when
+    their width is a multiple of 4 and the tensor is 16-byte aligned, else
+    as floats (4 bytes). Raises for a shape the kernel does not take.
+    """
+    if n <= 0 or c <= 0:
+        raise ValueError("gem_l2n launches for at least one image and "
+                         "channel, got %s" % ((n, c, h, w),))
+    cluster, threads = FULL_BATCH_LAUNCH if n >= FULL_BATCH \
+        else SMALL_BATCH_LAUNCH
+    cluster = min(cluster, c)
+    group = -(-c // cluster)
+    cluster = -(-c // group)
+    if group > MAX_GROUP:
+        raise ValueError("gem_l2n takes at most %d channels, got %d"
+                         % (cluster * MAX_GROUP, c))
+    if h * w >= 2 ** 31 or n * cluster >= 2 ** 31:
+        raise ValueError("gem_l2n: planes of %d x %d or %d images are too "
+                         "large for the kernel" % (h, w, n))
+    load_bytes = 16 if w % 4 == 0 and aligned16 else 4
+    return Geometry(cluster, group, load_bytes, threads)
 
 
 def _library():
@@ -31,8 +77,8 @@ def _library():
     fn = library.cdll.gem_l2n_f32
     if fn.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
-                       ctypes.c_float, ptr]
+        fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
+                       i32, ctypes.c_float, ptr]
         fn.restype = ctypes.c_int
     return fn
 
@@ -63,13 +109,17 @@ def gem_l2n(x, valid_hw, p, eps=1e-6):
                          "on %s" % (n, x.device))
     if p.dtype != torch.float32 or p.numel() != 1 or p.device != x.device:
         raise ValueError("p must be one float32 value on %s" % x.device)
-    fn = _library()
-    pooled = torch.empty((n, c), dtype=torch.float32, device=x.device)
     out = torch.empty((n, c), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), valid_hw.data_ptr(), p.data_ptr(),
-             pooled.data_ptr(), out.data_ptr(), n, c, h, w, float(eps),
-             stream)
+    if out.numel() == 0:
+        return out
+    geometry = launch_geometry(n, c, h, w, x.data_ptr() % 16 == 0)
+    fn = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), valid_hw.data_ptr(), p.data_ptr(),
+                 out.data_ptr(), n, c, h, w, geometry.cluster,
+                 geometry.group, geometry.threads, geometry.load_bytes // 4,
+                 float(eps), stream)
     if err != 0:
         raise RuntimeError("gem_l2n kernel launch failed with CUDA error %d"
                            % err)

@@ -30,7 +30,10 @@ def cuda():
     return resolve_device("cuda")
 
 
+# pixel counts 1, 189 and 130 (not multiples of 4), a ragged last warp
+# (1,000 pixels) and whole warps only (163,840 pixels)
 @pytest.mark.parametrize("shape", [(1, 1, 1, 3), (3, 7, 9, 3),
+                                   (1, 1, 130, 3), (1, 40, 25, 3),
                                    (2, 256, 320, 3)])
 def test_lab_n_matches_plain(cuda, shape):
     rgb = torch.from_numpy(np.random.RandomState(0).randint(
@@ -40,6 +43,21 @@ def test_lab_n_matches_plain(cuda, shape):
     torch.cuda.synchronize()
     assert lab_trilinear.launches == before + 1
     assert torch.equal(out, lab_trilinear.lab_n_plain(rgb))
+
+
+def test_lab_n_on_offset_views(cuda):
+    """A contiguous view at an odd byte offset (byte loads), and a sliced
+    view made contiguous (a fresh, aligned copy)."""
+    rng = np.random.RandomState(3)
+    big = torch.from_numpy(rng.randint(0, 256, (3, 45, 67, 3)).astype(
+        np.uint8)).to(cuda)
+    flat = big.reshape(-1)
+    shifted = flat[3:3 + 2 * 45 * 67 * 3].view(2, 45, 67, 3)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 4 != 0
+    sliced = big[:, 1:, 2:].contiguous()
+    for rgb in (shifted, sliced, big[1:]):
+        assert torch.equal(lab_trilinear.lab_n(rgb),
+                           lab_trilinear.lab_n_plain(rgb))
 
 
 def test_lab_n_full_sweep(cuda):

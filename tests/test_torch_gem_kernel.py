@@ -23,17 +23,16 @@ def cuda():
     return resolve_device("cuda")
 
 
-@pytest.mark.parametrize("shape", [(16, 2048, 32, 24), (16, 2048, 23, 17),
-                                   (3, 2048, 7, 9), (2, 64, 1, 33)])
-def test_kernel_matches_plain(cuda, shape):
-    rng = np.random.RandomState(0)
+def _ragged_input(rng, shape, device):
     n, c, h, w = shape
-    x = torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(device)
     valid = np.stack([rng.randint(1, h + 1, n), rng.randint(1, w + 1, n)], 1)
     valid[0] = (h, w)
     valid[-1] = (1, 1)
-    valid = torch.from_numpy(valid.astype(np.int32)).to(cuda)
-    p = torch.tensor([3.0], device=cuda)
+    return x, torch.from_numpy(valid.astype(np.int32)).to(device)
+
+
+def _against_plain(x, valid, p):
     before = pooling_kernel.launches
     with torch.no_grad():
         out = pooling_kernel.gem_l2n(x, valid, p)
@@ -41,6 +40,37 @@ def test_kernel_matches_plain(cuda, shape):
     assert pooling_kernel.launches == before + 1
     torch.testing.assert_close(out, pooling.gem_l2n_plain(x, valid, p),
                                rtol=1e-5, atol=1e-6)
+
+
+# the main paths' largest maps (ResNet101 and VGG16, full and 8-image
+# chunks), unaligned widths, odd extents, one row, C not a multiple of the
+# channel group (1001 = 7 x 126 + 119), one image
+@pytest.mark.parametrize("shape", [(16, 2048, 32, 24), (16, 2048, 23, 17),
+                                   (8, 2048, 24, 32), (16, 512, 64, 48),
+                                   (16, 512, 45, 34), (8, 512, 48, 64),
+                                   (3, 2048, 7, 9),
+                                   (2, 64, 1, 33), (4, 1001, 12, 16),
+                                   (1, 2048, 32, 24)])
+@pytest.mark.parametrize("p", [1.0, 2.5, 3.0, 4.7])
+def test_kernel_matches_plain(cuda, shape, p):
+    x, valid = _ragged_input(np.random.RandomState(0), shape, cuda)
+    _against_plain(x, valid, torch.tensor([p], device=cuda))
+
+
+def test_kernel_on_an_offset_view(cuda):
+    """A contiguous view 4 bytes past a 16-byte boundary (float loads), and
+    a sliced view made contiguous (a fresh, aligned copy)."""
+    rng = np.random.RandomState(1)
+    shape = (4, 256, 16, 12)
+    x, valid = _ragged_input(rng, shape, cuda)
+    flat = torch.empty(x.numel() + 1, device=cuda)
+    shifted = flat[1:].view(shape)
+    shifted.copy_(x)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    p = torch.tensor([3.0], device=cuda)
+    _against_plain(shifted, valid, p)
+    wide, _ = _ragged_input(rng, (4, 256, 16, 13), cuda)
+    _against_plain(wide[..., 1:].contiguous(), valid, p)
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):

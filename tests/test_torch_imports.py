@@ -63,6 +63,14 @@ def test_chip_smoke_alone_fails(tmp_path):
     assert os.listdir(tmp_path) == ["chip_smoke.py"]
 
 
+def test_kernel_times_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the script runs there")
+    result = _run(["kernel_times.py"], ROOT)
+    assert result.returncode != 0
+    assert "no CUDA device" in result.stderr
+
+
 RUN_CHAIN = """
 import sys
 for name in %r:

@@ -127,3 +127,77 @@ def test_wrapper_refuses_what_it_does_not_take():
     before = lt.launches
     lt.lab_n(torch.zeros((1, 2, 2, 3), dtype=torch.uint8))
     assert lt.launches == before  # the CPU runs the plain version
+
+
+def test_packed_tables_hold_the_node_table():
+    """Entry (ix, iy, iz) of the kernel's corner-pair table holds node
+    (ix, iy, iz) and node (ix, iy, min(iz + 1, 32)) per channel, the clamp
+    at 32 included, each entry once; the packed u8 table holds (tx, w)."""
+    tw, pairs = lt._packed_tables()
+    node = lt._node_lut3()
+    assert pairs.dtype == np.int16 and pairs.shape == (17 ** 3 * 8, 8)
+    assert pairs.nbytes == 17 ** 3 * 128  # 2 x 2 x 2 bricks of 128 bytes
+    i = np.arange(33)
+    ix, iy, iz = np.meshgrid(i, i, i, indexing="ij")
+    at = lt.pair_index(ix, iy, iz)
+    assert np.unique(at).size == 33 ** 3
+    # an entry and its brick-mates share one 128-byte line
+    assert (at // 8 == lt.pair_index(ix & ~1, iy & ~1, iz & ~1) // 8).all()
+    np.testing.assert_array_equal(pairs[at, 0:6:2], node)
+    np.testing.assert_array_equal(pairs[at, 1:6:2],
+                                  node[ix, iy, np.minimum(iz + 1, 32)])
+    np.testing.assert_array_equal(pairs[at[:, :, 32], 1:6:2], node[:, :, 32])
+    np.testing.assert_array_equal(pairs[at, 6:], 0)
+    unused = np.ones(len(pairs), bool)
+    unused[at.ravel()] = False
+    np.testing.assert_array_equal(pairs[unused], 0)
+    tx, w = lt._u8_corner_tables()
+    assert tw.dtype == np.int32
+    np.testing.assert_array_equal(tw & 0xFF, tx)
+    np.testing.assert_array_equal(tw >> 8, w)
+
+
+def _dp2a_lo(pair_words, bytes_lo):
+    """__dp2a_lo(a, b, 0): a's signed 16-bit halves times b's two low
+    signed bytes."""
+    lo = (pair_words & 0xFFFF).to(torch.int16).to(torch.int32)
+    hi = (pair_words >> 16).to(torch.int16).to(torch.int32)
+    b0 = (bytes_lo & 0xFF).to(torch.int8).to(torch.int32)
+    b1 = ((bytes_lo >> 8) & 0xFF).to(torch.int8).to(torch.int32)
+    return lo * b0 + hi * b1
+
+
+def _lab_n_kernel_emulation(batch_u8):
+    """The CUDA kernel's arithmetic in plain torch: (tx, w) from the packed
+    u8 table, 4 corner-pair loads of 4 int32 words from the brick-ordered
+    pair table, __dp2a_lo with the packed (16 - wz, wz), the (dx, dy)
+    weights."""
+    tw, pairs = (torch.from_numpy(a) for a in lt._packed_tables())
+    words = pairs.view(torch.int32)  # one 16-byte entry a row of 4 words
+    v = batch_u8.to(torch.int64)
+    e = [tw[v[..., c]] for c in range(3)]
+    t = [x & 0xFF for x in e]
+    f = [x >> 8 for x in e]
+    wz2 = (16 - f[2]) | (f[2] << 8)
+    acc = torch.zeros(batch_u8.shape, dtype=torch.int32)
+    for dx in (0, 1):
+        x = torch.clamp(t[0] + dx, max=32)
+        wx = f[0] if dx else 16 - f[0]
+        for dy in (0, 1):
+            y = torch.clamp(t[1] + dy, max=32)
+            wy = f[1] if dy else 16 - f[1]
+            entry = words[lt.pair_index(x, y, t[2]).to(torch.int64)]
+            for c in range(3):
+                acc[..., c] += _dp2a_lo(entry[..., c], wz2) * (wx * wy)
+    return (acc + 2048) >> 12
+
+
+@pytest.mark.parametrize("case", ["ramps", "random_2_18"])
+def test_kernel_emulation_matches_plain(case):
+    if case == "ramps":
+        batch = _structured()[None]
+    else:
+        batch = np.random.RandomState(3).randint(
+            0, 256, (1, 512, 512, 3)).astype(np.uint8)
+    batch = torch.from_numpy(batch)
+    assert torch.equal(_lab_n_kernel_emulation(batch), lt.lab_n_plain(batch))

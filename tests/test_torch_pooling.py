@@ -88,3 +88,90 @@ def test_default_device_needs_a_card():
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             resolve_device()
+
+
+# feature maps of the main path's chunks: ResNet101 (stride 32) and VGG16
+# (stride 16) at scales 1, 2^-1/2, 1/2 of (1024, 768) and (768, 1024)
+# buckets, batch 16, then the two shapes of the card tests
+MAIN_PATH_SHAPES = [
+    (16, 2048, 32, 24), (16, 2048, 23, 17), (16, 2048, 16, 12),
+    (16, 2048, 24, 32), (16, 2048, 17, 23), (16, 2048, 12, 16),
+    (16, 512, 64, 48), (16, 512, 45, 34), (16, 512, 32, 24),
+    (16, 512, 48, 64), (16, 512, 34, 45), (16, 512, 24, 32),
+    (8, 2048, 29, 22), (8, 512, 57, 44),
+]
+
+
+@pytest.mark.parametrize("shape", MAIN_PATH_SHAPES + [(3, 2048, 7, 9),
+                                                      (2, 64, 1, 33)])
+def test_gem_launch_geometry(shape):
+    n, c, h, w = shape
+    g = pooling_kernel.launch_geometry(n, c, h, w)
+    assert g.cluster <= 16
+    assert g.threads % 32 == 0 and 4 * g.group <= 48 * 1024
+    covered = []
+    for block in range(g.cluster):
+        channels = range(block * g.group, min((block + 1) * g.group, c))
+        assert len(channels) > 0  # no empty block
+        covered.extend(channels)
+    assert covered == list(range(c))  # every channel exactly once
+    assert g.load_bytes == (16 if w % 4 == 0 else 4)
+    # a tensor that is not 16-byte aligned loads floats whatever its width
+    assert pooling_kernel.launch_geometry(n, c, h, w, False).load_bytes == 4
+
+
+@pytest.mark.parametrize("c", [1, 9, 1001])
+def test_gem_launch_geometry_odd_channels(c):
+    g = pooling_kernel.launch_geometry(1, c, 5, 8)
+    assert (g.cluster - 1) * g.group < c <= g.cluster * g.group
+    with pytest.raises(ValueError):
+        pooling_kernel.launch_geometry(0, c, 5, 8)
+
+
+@pytest.mark.parametrize("p", [2.5, 3.0])
+def test_gem_head_gradients_match_jax(rng, p):
+    """The port's GeM head under autograd (its plain version) against
+    jax.grad of the JAX package's masked gem + l2n."""
+    from mdir_tpu_torch.models.retrievalnet import GeMPoolL2N
+
+    x = rng.rand(3, 7, 9, 16).astype(np.float32)
+    valid = np.asarray([[7, 9], [3, 4], [1, 1]], np.int32)
+    weights = rng.randn(3, 16).astype(np.float32)
+
+    def loss(x, p):
+        mask = jax_feature_mask((7, 9), jnp.asarray(valid))
+        out = jax_pooling.l2n(jax_pooling.gem(x, p=p[0], mask=mask))
+        return jnp.sum(out * weights)
+
+    gx, gp = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x),
+                                           jnp.asarray([p], jnp.float32))
+    head = GeMPoolL2N(p_init=p)
+    tx = _nchw(x).requires_grad_()
+    out = head(tx, torch.from_numpy(valid))
+    (out * torch.from_numpy(weights)).sum().backward()
+    np.testing.assert_allclose(tx.grad.numpy(),
+                               np.asarray(gx).transpose(0, 3, 1, 2),
+                               rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(head.p.grad.numpy(), np.asarray(gp),
+                               rtol=1e-5, atol=1e-7)
+
+
+def test_gem_head_takes_the_kernel_only_without_gradients(monkeypatch, rng):
+    from mdir_tpu_torch.models.retrievalnet import GeMPoolL2N
+
+    calls = []
+
+    def kernel(x, valid_hw, p, eps=1e-6):
+        calls.append(x.shape)
+        return pooling.gem_l2n_plain(x, valid_hw, p, eps=eps)
+
+    monkeypatch.setattr(pooling_kernel, "gem_l2n", kernel)
+    head = GeMPoolL2N()
+    x = _nchw(rng.rand(2, 4, 5, 8).astype(np.float32))
+    valid = torch.tensor([[4, 5], [2, 3]], dtype=torch.int32)
+    out = head(x, valid)  # p requires a gradient: the plain version
+    assert calls == [] and out.requires_grad
+    with torch.no_grad():
+        ref = head(x, valid)
+    assert calls == [x.shape]
+    torch.testing.assert_close(out.detach(), ref, rtol=0, atol=0)

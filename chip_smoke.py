@@ -32,8 +32,10 @@ Phases, one line each with its wall time:
      against their plain versions on the card, bit-equal: lab_n on all
      256^3 RGB triples, the CLAHE kernels on ragged buckets (non-divisible,
      divisible, tiny and filler extents; grids 8 and 4; clips 2, 4, 40),
-     and the single-image clahe_u8 and the L-only lab_l_u8 on the same
-     kernels;
+     on a constant image, on a bucket whose width is not a multiple of 4
+     and on values and LUTs 4 bytes past a 16-byte boundary (the kernels'
+     one-pixel loads), and the single-image clahe_u8 and the L-only
+     lab_l_u8 on the same kernels;
   7. the CLAHE main path, the paper's "CLAHE N/D" eval: a VGG16-GeM
      (512-d, random weights from a seed, p = 3, Lw whitening, scales 1,
      2^-1/2, 1/2, image size 1024) with the transform
@@ -75,7 +77,8 @@ P_VALUES = (1.0, 2.5, 3.0, 4.7)  # GeM exponents the kernel is held at
 PATH_P, OTHER_P = 3.0, 2.5  # the path's p (timed) and a non-integer p
 # the kernels' "redesigned" tag in the kernels line: where the records
 # (PERF.md §6) hold their earlier times
-REDESIGNED = {"gem_l2n": "PR 6", "lab_n": "PR 6"}
+REDESIGNED = {"gem_l2n": "PR 6", "lab_n": "PR 6", "clahe_tile_luts": "PR 7",
+              "clahe_interp": "PR 7"}
 RTOL, ATOL = 1e-5, 1e-6  # kernel against its plain version
 DESC_ATOL = 1e-4  # descriptors, kernel pool against plain pool
 TIMED_LAUNCHES = 100
@@ -99,6 +102,9 @@ LAB_SWEEP_SIDE = 4096  # one (1, 4096, 4096, 3) image holds all 256^3 RGB
 CLAHE_CHECK_SHAPES = [(1000, 750), (683, 1024), (1024, 768), (512, 512),
                       (1, 1), (7, 9), (1024, 1024)]
 CLAHE_CHECK_CASES = [(2.0, 8), (4.0, 8), (40.0, 8), (4.0, 4), (40.0, 4)]
+# a bucket whose width is not a multiple of 4, at a grid that divides it
+NARROW_BUCKET, NARROW_GRID = (1020, 1026), 6
+NARROW_SHAPES = [(1020, 1026), (1000, 1021), (683, 1026), (7, 9), (1, 1)]
 # integer or float operations per pixel, counted from the kernels' sources:
 # lab_n 24 multiply-adds of the blend + 6 weight products + 6 for the
 # rounding; clahe_interp 8 for the two axes' coordinates, 11 for the blend,
@@ -380,6 +386,16 @@ def clahe_against_plain(clahe, vals, aux, grid, what):
         vals, plain_luts, aux, grid), ("clahe_interp",) + what)
 
 
+def offset_copy(t):
+    """A contiguous copy of ``t`` 4 bytes past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    shifted = flat[1:].view(t.shape)
+    shifted.copy_(t)
+    check(shifted.is_contiguous() and shifted.data_ptr() % 16 == 4,
+          "offset view")
+    return shifted
+
+
 def plain_clahe_kernels(clahe, lab_trilinear):
     """Context: the chain runs the plain lab and CLAHE versions."""
     import contextlib
@@ -423,6 +439,32 @@ def clahe_kernel_phase(device, clahe, lab_trilinear):
         "of extents %s, (clip, grid) %s: bit-equal to plain"
         % (len(CLAHE_CHECK_SHAPES), bh, bw, CLAHE_CHECK_SHAPES,
            CLAHE_CHECK_CASES))
+
+    grid = (8, 8)
+    aux = clahe.aux_to_device(clahe.clahe_bucket_aux(
+        CLAHE_CHECK_SHAPES, (bh, bw), 4.0, grid), device)
+    clahe_against_plain(clahe, torch.full_like(vals, 77), aux, grid,
+                        ("constant",))
+    shifted = offset_copy(vals)
+    luts = clahe.tile_luts_bucketed_plain(vals, aux, grid)
+    check_equal(clahe.clahe_tile_luts(shifted, aux, grid), luts,
+                ("clahe_tile_luts", "offset view"))
+    check_equal(clahe.clahe_interp(shifted, offset_copy(luts), aux, grid),
+                clahe.clahe_interp_bucketed_plain(vals, luts, aux, grid),
+                ("clahe_interp", "offset view"))
+    narrow = np.zeros((len(NARROW_SHAPES),) + NARROW_BUCKET, np.int32)
+    for i, (h, w) in enumerate(NARROW_SHAPES):
+        narrow[i, :h, :w] = rng.randint(0, 256, (h, w))
+    grid = (NARROW_GRID, NARROW_GRID)
+    aux = clahe.aux_to_device(clahe.clahe_bucket_aux(
+        NARROW_SHAPES, NARROW_BUCKET, 4.0, grid), device)
+    clahe_against_plain(clahe, torch.from_numpy(narrow).to(device), aux,
+                        grid, ("narrow",))
+    say("kernel", "clahe_tile_luts, clahe_interp on a constant bucket, on "
+        "values and LUTs 4 bytes off a 16-byte boundary, and on a %s bucket "
+        "of extents %s at grid %d: bit-equal to plain"
+        % ((len(NARROW_SHAPES),) + NARROW_BUCKET, NARROW_SHAPES,
+           NARROW_GRID))
 
     src = torch.from_numpy(rng.randint(0, 256, (683, 1000)).astype(
         np.uint8)).to(device)

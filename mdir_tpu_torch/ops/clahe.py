@@ -19,11 +19,22 @@ reflect-101 source maps, tile sizes, clip limits). Two CUDA kernels of
 
 * ``clahe_tile_luts`` (replaces the Pallas ``tile_luts_pallas``, in the
   bucketed form of ``_hist_dynamic`` + ``_luts_dynamic``): one block per
-  (image, tile) builds the histogram in shared memory and the LUT;
-* ``clahe_interp`` (replaces ``clahe_interp_bucketed_pallas``): one thread
-  per pixel blends the 4 LUTs with round-to-nearest float operations only
-  (no FMA contraction), so it is bit-equal to cv2 where the TPU kernel was
-  within 1 u8.
+  (image, tile) counts the histogram in warp-private shared-memory
+  sub-histograms, 4 pixels a load where the tile's columns are the image's
+  own, and builds the LUT;
+* ``clahe_interp`` (replaces ``clahe_interp_bucketed_pallas``): one block
+  per strip of rows stages its tile rows' LUTs in shared memory as u8 and
+  blends the 4 LUTs of 4 pixels a thread with round-to-nearest float
+  operations only (no FMA contraction), so it is bit-equal to cv2 where the
+  TPU kernel was within 1 u8.
+
+``tile_luts_geometry`` and ``interp_geometry`` pick each launch's shape from
+the bucket's (the CPU tests pin them against ``clahe_bucket_aux``).
+
+``clahe_interp`` is defined for the LUTs that ``clahe_tile_luts`` makes,
+whose entries are integers in [0, 255]: its kernel stages them as u8. The
+plain version blends whatever floats it is given, so on other LUTs the two
+differ; the kernel does not check.
 
 Each wrapper takes a CPU tensor through its plain PyTorch version
 (``tile_luts_bucketed_plain``, ``clahe_interp_bucketed_plain``) and launches
@@ -31,6 +42,7 @@ its kernel on a CUDA tensor, or raises. ``clahe_u8`` (one image, static
 grid) runs the same two kernels at batch 1; it stands in for the Pallas
 ``clahe_u8_pallas`` and ``clahe_u8_pallas_full``.
 """
+import collections
 import ctypes
 
 import numpy as np
@@ -41,6 +53,25 @@ from .. import _build
 HIST_SIZE = 256
 
 launches = {"clahe_tile_luts": 0, "clahe_interp": 0}  # since reset_launches
+
+# launch choices; of those ``kernel_times.py`` sweeps at the main path's
+# (16, 1024, 768) chunk, the fastest on an H100 (PERF.md §6)
+INTERP_ROWS = 8  # rows per strip
+INTERP_THREADS = 256
+INTERP_MAX_ROWS = 64  # csrc/clahe.cu kMaxStripRows
+STAGE_BYTES = 48 * 1024  # u8 LUT rows a strip stages, without an opt-in
+MAX_SHARED_BYTES = 227 * 1024  # shared memory a block can have on an H100
+
+# max_th/max_tw: the largest tile of the bucket (the staged maps' size);
+# vec: int4 loads over a tile's own columns. A block has 256 threads, one
+# per bin, and 8 sub-histograms.
+LutGeometry = collections.namedtuple(
+    "LutGeometry", "max_th max_tw vec smem_bytes")
+# vec: pixels a load (4 or 1); strip_rows: rows a block; staged_rows: tile
+# rows of LUTs a block can stage (at least the strip's span)
+InterpGeometry = collections.namedtuple(
+    "InterpGeometry",
+    "vec strip_rows staged_rows threads_x threads_y smem_bytes")
 
 
 def reset_launches():
@@ -280,14 +311,71 @@ def clahe_interp_bucketed_plain(vals, luts, aux, grid):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
+def _check_extent(name, bh, bw, gh, gw):
+    if bh <= 0 or bw <= 0 or bh % gh or bw % gw:
+        raise ValueError("%s: a (%d, %d) bucket is not divisible by the "
+                         "grid %s" % (name, bh, bw, (gh, gw)))
+    if bh * bw >= 2 ** 31:
+        raise ValueError("%s: images of %d x %d are too large for the "
+                         "kernel" % (name, bh, bw))
+
+
+def tile_luts_geometry(bh, bw, gh, gw, aligned16=True):
+    """The ``clahe_tile_luts`` launch for a (B, bh, bw) bucket at grid
+    (gh, gw): one block of 256 threads per (tile, image).
+
+    A tile of cv2's padded extent has at most bh // gh + 1 rows (cv2 pads
+    by less than one tile), so the staged maps hold that many. Pixels load 4
+    at a time when rows are whole int4s (bw % 4 == 0) and the values are
+    16-byte aligned. Raises for a bucket the kernel does not take.
+    """
+    _check_extent("clahe_tile_luts", bh, bw, gh, gw)
+    max_th, max_tw = bh // gh + 1, bw // gw + 1
+    smem = 4 * (HIST_SIZE // 32 * HIST_SIZE + max_th + max_tw)
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError("clahe_tile_luts: tiles of a (%d, %d) bucket at grid "
+                         "%s need %d bytes of shared memory"
+                         % (bh, bw, (gh, gw), smem))
+    return LutGeometry(max_th, max_tw, bw % 4 == 0 and aligned16, smem)
+
+
+def interp_geometry(bh, bw, gh, gw, aligned16=True, strip_rows=INTERP_ROWS):
+    """The ``clahe_interp`` launch for a (B, bh, bw) bucket at grid
+    (gh, gw): one block per strip of ``strip_rows`` rows of an image.
+
+    R consecutive rows touch at most R + 1 tile rows (a tile has at least
+    one row), so a block stages at most min(gh, R + 1) rows of gw u8 LUTs;
+    R is halved until that fits in STAGE_BYTES. Each thread keeps one group
+    of ``vec`` columns: 4 when rows are whole int4s and the values are
+    16-byte aligned, else 1. Raises for a bucket the kernel does not take.
+    """
+    _check_extent("clahe_interp", bh, bw, gh, gw)
+    if not 1 <= strip_rows <= INTERP_MAX_ROWS:
+        raise ValueError("clahe_interp: strips of 1 to %d rows, not %d"
+                         % (INTERP_MAX_ROWS, strip_rows))
+    rows = min(strip_rows, bh)
+    lut_row = gw * HIST_SIZE
+    while rows > 1 and min(gh, rows + 1) * lut_row > STAGE_BYTES:
+        rows //= 2
+    staged = min(gh, rows + 1)
+    if staged * lut_row > MAX_SHARED_BYTES:
+        raise ValueError("clahe_interp: %d tile columns do not fit the "
+                         "card's shared memory" % gw)
+    vec = 4 if bw % 4 == 0 and aligned16 else 1
+    threads_x = min(bw // vec, INTERP_THREADS)
+    threads_y = max(1, min(rows, INTERP_THREADS // threads_x))
+    return InterpGeometry(vec, rows, staged, threads_x, threads_y,
+                          staged * lut_row)
+
+
 def _library(symbol):
     fn = getattr(_build.load("clahe").cdll, symbol)
     if fn.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         if symbol == "clahe_tile_luts_i32":
-            fn.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
+            fn.argtypes = [ptr] * 8 + [i32] * 8 + [ptr]
         else:
-            fn.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
+            fn.argtypes = [ptr] * 5 + [i32] * 10 + [ptr]
         fn.restype = ctypes.c_int
     return fn
 
@@ -330,6 +418,7 @@ def clahe_tile_luts(vals, aux, grid):
                        device=vals.device)
     if b == 0:
         return luts
+    geometry = tile_luts_geometry(bh, bw, gh, gw, vals.data_ptr() % 16 == 0)
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _library("clahe_tile_luts_i32")(
@@ -337,7 +426,7 @@ def clahe_tile_luts(vals, aux, grid):
             aux["col_src"].data_ptr(), aux["th"].data_ptr(),
             aux["tw"].data_ptr(), aux["clim"].data_ptr(),
             aux["scale"].data_ptr(), luts.data_ptr(), b, bh, bw, gh, gw,
-            stream)
+            geometry.max_th, geometry.max_tw, int(geometry.vec), stream)
     if err != 0:
         raise RuntimeError("clahe_tile_luts kernel launch failed with CUDA "
                            "error %d" % err)
@@ -350,7 +439,9 @@ def clahe_interp(vals, luts, aux, grid):
     (B, BH, BW) float32 CLAHE'd u8-values.
 
     CPU tensor: ``clahe_interp_bucketed_plain``. CUDA tensor: the
-    ``clahe_interp`` kernel (bit-equal), or an error.
+    ``clahe_interp`` kernel (bit-equal), or an error. The kernel stages the
+    LUTs as u8, so their entries must be integers in [0, 255], as
+    ``clahe_tile_luts`` makes them.
     """
     if vals.device.type == "cpu":
         return clahe_interp_bucketed_plain(vals, luts, aux, grid)
@@ -368,12 +459,15 @@ def clahe_interp(vals, luts, aux, grid):
     out = torch.empty((b, bh, bw), dtype=torch.float32, device=vals.device)
     if out.numel() == 0:
         return out
+    geometry = interp_geometry(bh, bw, gh, gw,
+                               (vals.data_ptr() | out.data_ptr()) % 16 == 0)
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _library("clahe_interp_i32")(
             vals.data_ptr(), luts.data_ptr(), aux["inv_th"].data_ptr(),
             aux["inv_tw"].data_ptr(), out.data_ptr(), b, bh, bw, gh, gw,
-            stream)
+            geometry.vec, geometry.strip_rows, geometry.staged_rows,
+            geometry.threads_x, geometry.threads_y, stream)
     if err != 0:
         raise RuntimeError("clahe_interp kernel launch failed with CUDA "
                            "error %d" % err)

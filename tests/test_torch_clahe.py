@@ -78,6 +78,96 @@ def test_bucket_aux_matches_jax():
     assert ours["th"][0] == 8 and ours["tw"][0] == 6  # 57x43 pads to 64x48
 
 
+# (extents, bucket, grid) of the kernels' launch checks: the ragged
+# bucket, the CLAHE path's first chunk, the card tests' buckets (tiny
+# images in a large bucket; a width that is not a multiple of 4)
+GEOMETRY_BUCKETS = [
+    (BUCKET_SHAPES, (128, 128), 8), (BUCKET_SHAPES, (128, 128), 4),
+    ([(1024, 768)] * 12 + [(1000, 750)] * 4, (1024, 768), 8),
+    ([(768, 1024)] * 8 + [(683, 1024)] * 8, (768, 1024), 8),
+    ([(1000, 750), (683, 1024), (1024, 768), (512, 512), (1, 1), (7, 9),
+      (1024, 1024)], (1024, 1024), 8),
+    ([(1020, 1026), (1000, 1021), (683, 1026), (7, 9), (1, 1)],
+     (1020, 1026), 6)]
+
+
+def _tile_rows(aux, size, grid_rows):
+    """(B, size) lower and upper tile row of each bucket row, as the
+    interpolation kernel computes them: f32 ``y * inv_th - 0.5``."""
+    f = (np.arange(size, dtype=np.float32)[None, :]
+         * aux["inv_th"][:, None]).astype(np.float32) - np.float32(0.5)
+    lo = np.floor(f).astype(np.int64)
+    return (np.clip(lo, 0, grid_rows - 1),
+            np.clip(lo + 1, 0, grid_rows - 1))
+
+
+@pytest.mark.parametrize("shapes,bucket,grid", GEOMETRY_BUCKETS)
+def test_interp_geometry_stages_every_strip(shapes, bucket, grid):
+    """Each strip's tile rows, from the first row's lower to the last row's
+    upper tile, fit the rows the launch stages, at the wrapper's strip and
+    at the sweep's; the JAX package's aux gives the same rows."""
+    bh, bw = bucket
+    aux = clahe.clahe_bucket_aux(shapes, bucket, 4.0, (grid, grid))
+    jax_aux = jax_clahe.clahe_bucket_aux(shapes, bucket, 4.0, (grid, grid))
+    lo, hi = _tile_rows(aux, bh, grid)
+    for a, b in zip((lo, hi), _tile_rows(jax_aux, bh, grid)):
+        np.testing.assert_array_equal(a, b)
+    for rows in (1, 4, clahe.INTERP_ROWS, clahe.INTERP_MAX_ROWS):
+        g = clahe.interp_geometry(bh, bw, grid, grid, strip_rows=rows)
+        assert g.strip_rows <= rows and g.smem_bytes <= clahe.STAGE_BYTES
+        assert g.threads_x * g.threads_y <= clahe.INTERP_THREADS
+        for y0 in range(0, bh, g.strip_rows):
+            last = min(y0 + g.strip_rows, bh) - 1
+            span = hi[:, last] - lo[:, y0] + 1
+            assert span.max() <= g.staged_rows
+            if aux["th"].min() >= g.strip_rows:  # the main path's tiles
+                assert span.max() <= 3
+    g = clahe.interp_geometry(bh, bw, grid, grid)
+    assert g.vec == (4 if bw % 4 == 0 else 1)
+    assert g.threads_x == min(bw // g.vec, clahe.INTERP_THREADS)
+    assert clahe.interp_geometry(bh, bw, grid, grid, False).vec == 1
+
+
+@pytest.mark.parametrize("shapes,bucket,grid", GEOMETRY_BUCKETS)
+def test_tile_luts_geometry_holds_every_tile(shapes, bucket, grid):
+    """The staged maps hold every image's tile, and the columns that map
+    to themselves, which the kernel counts and loads as int4, are the
+    tile's columns inside the image: a prefix, the rest map to earlier
+    columns (cv2's reflection), in this package's aux and the JAX one's."""
+    bh, bw = bucket
+    aux = clahe.clahe_bucket_aux(shapes, bucket, 4.0, (grid, grid))
+    jax_aux = jax_clahe.clahe_bucket_aux(shapes, bucket, 4.0, (grid, grid))
+    g = clahe.tile_luts_geometry(bh, bw, grid, grid)
+    assert aux["th"].max() <= g.max_th and aux["tw"].max() <= g.max_tw
+    assert g.smem_bytes == 4 * (8 * 256 + g.max_th + g.max_tw)
+    assert g.vec == (bw % 4 == 0)
+    assert not clahe.tile_luts_geometry(bh, bw, grid, grid, False).vec
+    for col_src in (aux["col_src"], jax_aux["col_src"]):
+        for i, (h, w) in enumerate(shapes):
+            tw = aux["tw"][i]
+            for tx in range(grid):
+                idx = np.arange(tx * tw, (tx + 1) * tw)
+                seg = col_src[i, idx]
+                inside = int(np.sum(seg == idx))
+                assert inside == min(max(w - tx * tw, 0), tw)
+                assert (seg[inside:] < idx[inside:]).all()
+
+
+def test_geometry_refuses_what_the_kernels_do_not_take():
+    with pytest.raises(ValueError, match="divisible"):
+        clahe.tile_luts_geometry(100, 128, 8, 8)
+    with pytest.raises(ValueError, match="strips"):
+        clahe.interp_geometry(128, 128, 8, 8, strip_rows=clahe.INTERP_MAX_ROWS
+                              + 1)
+    with pytest.raises(ValueError, match="tile columns"):
+        clahe.interp_geometry(1024, 1024, 2, 1024)
+    with pytest.raises(ValueError, match="too large"):
+        clahe.interp_geometry(2 ** 16, 2 ** 15, 8, 8)
+    # a fine grid stages fewer rows per strip, within STAGE_BYTES
+    g = clahe.interp_geometry(1024, 1024, 32, 32)
+    assert g.smem_bytes <= clahe.STAGE_BYTES and g.strip_rows < 16
+
+
 @pytest.mark.parametrize("clip,grid", [(2.0, 8), (4.0, 8), (40.0, 8),
                                        (4.0, 4), (2.5, 4)])
 def test_bucketed_matches_cv2_numpy_and_jax(clip, grid):

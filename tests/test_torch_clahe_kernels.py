@@ -21,6 +21,9 @@ pytestmark = pytest.mark.gpu
 # and a filler slot of the bucket's own shape
 SHAPES = [(1000, 750), (683, 1024), (1024, 768), (512, 512), (1, 1), (7, 9),
           (1024, 1024)]
+# a bucket whose width is not a multiple of 4 (one pixel a load), at grid 6
+NARROW_BUCKET = (1020, 1026)
+NARROW_SHAPES = [(1020, 1026), (1000, 1021), (683, 1026), (7, 9), (1, 1)]
 
 
 @pytest.fixture
@@ -69,20 +72,46 @@ def test_lab_n_full_sweep(cuda):
                        lab_trilinear.lab_n_plain(rgb))
 
 
-@pytest.mark.parametrize("clip,grid", [(2.0, 8), (4.0, 8), (40.0, 8),
-                                       (4.0, 4)])
-def test_clahe_kernels_match_plain(cuda, clip, grid):
-    rng = np.random.RandomState(1)
-    bh, bw = 1024, 1024
-    vals = np.zeros((len(SHAPES), bh, bw), np.int32)
-    for i, (h, w) in enumerate(SHAPES):
+def _bucket_values(rng, shapes, bh, bw):
+    vals = np.zeros((len(shapes), bh, bw), np.int32)
+    for i, (h, w) in enumerate(shapes):
         vals[i, :h, :w] = rng.randint(0, 256, (h, w))
-    vals = torch.from_numpy(vals).to(cuda)
+    return vals
+
+
+def _offset_copy(t):
+    """A contiguous copy of ``t`` 4 bytes past a 16-byte boundary."""
+    shifted = torch.empty(t.numel() + 1, dtype=t.dtype,
+                          device=t.device)[1:].view(t.shape)
+    shifted.copy_(t)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    return shifted
+
+
+# random values in SHAPES' bucket at four (clip, grid); one value
+# everywhere (every lane of a warp counts one bin); the narrow bucket; and
+# values and LUTs 4 bytes past a 16-byte boundary (one pixel a load, LUTs
+# staged one entry at a time)
+@pytest.mark.parametrize("clip,grid,bucket", [
+    (2.0, 8, "random"), (4.0, 8, "random"), (40.0, 8, "random"),
+    (4.0, 4, "random"), (4.0, 8, "constant"), (4.0, 6, "narrow"),
+    (4.0, 8, "offset")])
+def test_clahe_kernels_match_plain(cuda, clip, grid, bucket):
+    rng = np.random.RandomState(1)
+    shapes, (bh, bw) = (NARROW_SHAPES, NARROW_BUCKET) if bucket == "narrow" \
+        else (SHAPES, (1024, 1024))
+    vals = torch.from_numpy(_bucket_values(rng, shapes, bh, bw)).to(cuda)
+    if bucket == "constant":
+        vals.fill_(77)
+    elif bucket == "offset":
+        vals = _offset_copy(vals)
     aux = clahe.aux_to_device(
-        clahe.clahe_bucket_aux(SHAPES, (bh, bw), clip, (grid, grid)), cuda)
+        clahe.clahe_bucket_aux(shapes, (bh, bw), clip, (grid, grid)), cuda)
     before = dict(clahe.launches)
     luts = clahe.clahe_tile_luts(vals, aux, (grid, grid))
-    out = clahe.clahe_interp(vals, luts, aux, (grid, grid))
+    out = clahe.clahe_interp(
+        vals, _offset_copy(luts) if bucket == "offset" else luts, aux,
+        (grid, grid))
     torch.cuda.synchronize()
     assert clahe.launches["clahe_tile_luts"] \
         == before["clahe_tile_luts"] + 1
@@ -91,6 +120,26 @@ def test_clahe_kernels_match_plain(cuda, clip, grid):
     assert torch.equal(luts, plain_luts)
     assert torch.equal(out, clahe.clahe_interp_bucketed_plain(
         vals, plain_luts, aux, (grid, grid)))
+
+
+def test_clahe_kernels_on_offset_views(cuda):
+    """LUTs 4, 8 and 12 bytes past a 16-byte boundary beside aligned
+    values: 4 pixels a load, LUTs staged one entry at a time."""
+    rng = np.random.RandomState(4)
+    shapes = [(120, 96), (57, 43), (7, 9)]
+    grid = (8, 8)
+    vals = torch.from_numpy(_bucket_values(rng, shapes, 128, 96)).to(cuda)
+    assert vals.data_ptr() % 16 == 0
+    aux = clahe.aux_to_device(
+        clahe.clahe_bucket_aux(shapes, (128, 96), 4.0, grid), cuda)
+    luts = clahe.tile_luts_bucketed_plain(vals, aux, grid)
+    out = clahe.clahe_interp_bucketed_plain(vals, luts, aux, grid)
+    for offset in (1, 2, 3):
+        shifted = torch.empty(luts.numel() + offset, dtype=luts.dtype,
+                              device=cuda)[offset:].view(luts.shape)
+        shifted.copy_(luts)
+        assert shifted.data_ptr() % 16 == 4 * offset
+        assert torch.equal(clahe.clahe_interp(vals, shifted, aux, grid), out)
 
 
 def test_clahe_u8_and_lab_l_u8_match_plain(cuda):

@@ -1,2 +1,2 @@
-"""Host data of the eval path: file readers, test datasets, transforms and
-image loading."""
+"""Host data: file readers, test and training datasets, the loader,
+transforms and image loading."""

@@ -1,4 +1,4 @@
-"""Networks, wrappers, checkpoint reading and validation of the eval path."""
+"""Networks, wrappers, checkpoints, validation and the training session."""
 from .checkpoints import Checkpoints
 from .network import initialize_network
 
@@ -7,4 +7,12 @@ def load_network(params, device="cuda"):
     """Network from ``params["path"]`` (a checkpoint file or directory) with
     ``params["runtime"]`` applied, on ``device``."""
     state = Checkpoints.load_network(params["path"])
-    return initialize_network(state, device, params["runtime"])
+    return initialize_network(None, device, state, params["runtime"])
+
+
+def initialize_learning(params, data, device="cuda"):
+    """The training session of a train-stage scenario, on ``device``."""
+    from .learning import LEARNINGS
+
+    return LEARNINGS[params["learning"]["type"]].initialize(params, data,
+                                                            device)

@@ -1,11 +1,20 @@
-"""Read network checkpoints: the JAX package's msgpack ``.ckpt`` files and
-torch ``.pth`` pickles.
+"""Network and training checkpoints in the JAX package's ``epochs/`` role
+layout.
 
-A ``.ckpt`` is flax's msgpack encoding of a nested dict whose arrays are
-msgpack ext values (code 1: an array as ``(shape, dtype name, bytes)``;
-code 3: a numpy scalar, encoded the same way). ``msgpack`` and
+Reading: the JAX package's msgpack ``.ckpt`` files and torch pickles. A
+``.ckpt`` from ``mdir_tpu`` is flax's msgpack encoding of a nested dict whose
+arrays are msgpack ext values (code 1: an array as ``(shape, dtype name,
+bytes)``; code 3: a numpy scalar, encoded the same way). ``msgpack`` and
 ``torch.load`` are imported inside the readers, off the path that only
 extracts. Nothing is downloaded: URLs raise.
+
+Writing: the port writes ``torch.save`` files under the JAX package's names
+(``net_epoch_%02d.ckpt``, ``learning_epoch_%02d.ckpt``, the
+``_notrain/_frozen/_bestsofar/_best/_last`` role files and symlinks) with its
+two cadences: ``store_every`` epochs are kept, ``checkpoint_every`` epochs
+roll (the previous rolling checkpoint is deleted unless it was stored or is
+the best so far), and the last epoch always persists. Every file is written
+to a temporary name and moved into place with ``os.replace``.
 """
 import os
 import pickle
@@ -13,7 +22,14 @@ from pathlib import Path
 
 import numpy as np
 
+SUFFIX_NOTRAIN = "_notrain.ckpt"
+SUFFIX_FROZEN = "_frozen.ckpt"
+SUFFIX_EPOCH = "_epoch_%02d.ckpt"
+SUFFIX_BEST_SO_FAR = "_bestsofar.ckpt"
 SUFFIX_BEST = "_best.ckpt"
+SUFFIX_LAST = "_last.ckpt"
+
+FNAME_TRAINING = "learning_epoch_%02d.ckpt"
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
@@ -65,7 +81,148 @@ def load_checkpoint_any(path):
             return pickle.load(handle)
 
 
+def save_state(state, path):
+    """``torch.save`` a nested dict to ``path`` through a temporary file."""
+    import torch
+
+    tmp = str(path) + ".tmp"
+    torch.save(state, tmp)
+    os.replace(tmp, path)
+
+
+class _Cadence:
+    """Which persistence actions epoch ``epoch`` triggers (reference
+    ``mdir/learning/checkpoints.py:32-45``): ``store_every`` hits are
+    permanent; ``checkpoint_every`` hits roll, the previous rolling
+    checkpoint (``prev_epoch1``) going unless it was also a store hit. The
+    last epoch always persists."""
+
+    def __init__(self, epoch, store_every, checkpoint_every, is_last):
+        self.epoch1 = epoch + 1
+        self.stored = bool(store_every) and self.epoch1 % store_every == 0
+        aligned = bool(checkpoint_every) \
+            and self.epoch1 % checkpoint_every == 0
+        self.checkpointed = aligned or is_last
+        self.persists = self.checkpointed or self.stored
+        self.prev_epoch1 = None
+        self.prev_is_stored = False
+        if self.checkpointed and checkpoint_every:
+            back = self.epoch1 % checkpoint_every or checkpoint_every
+            self.prev_epoch1 = self.epoch1 - back
+            self.prev_is_stored = bool(store_every) \
+                and self.prev_epoch1 % store_every == 0
+
+
 class Checkpoints:
+
+    def __init__(self, directory, store_every, checkpoint_every):
+        self.directory = Path(directory) / "epochs"
+        self.store_every = store_every
+        self.checkpoint_every = checkpoint_every
+
+    def _file(self, name):
+        return self.directory / name
+
+    def save_notrain(self, networks_state):
+        """The off-the-shelf network, with the best and last roles."""
+        os.makedirs(self.directory, exist_ok=True)
+        for key, state in networks_state.items():
+            assert "/" not in key
+            save_state(state, self._file(key + SUFFIX_NOTRAIN))
+            for role in (SUFFIX_BEST, SUFFIX_LAST):
+                link = self._file(key + role)
+                link.unlink(missing_ok=True)
+                link.symlink_to(key + SUFFIX_NOTRAIN)
+
+    def save_epoch(self, networks_state, training_state, epoch, is_best,
+                   is_last):
+        assert epoch >= 0
+        when = _Cadence(epoch, self.store_every, self.checkpoint_every,
+                        is_last)
+        os.makedirs(self.directory, exist_ok=True)
+        for key, state in networks_state.items():
+            assert "/" not in key
+            self._place_network(key, state, when, is_best, is_last)
+        if when.persists:
+            self._write_training(training_state, when)
+        for key in networks_state:
+            self._promote_and_roll(key, when, is_last)
+
+    def _place_network(self, key, state, when, is_best, is_last):
+        """Write (or symlink) this epoch's network file and its role links."""
+        frozen_name = key + SUFFIX_FROZEN
+        if state["frozen"] and not self._file(frozen_name).exists():
+            save_state(state, self._file(frozen_name))
+
+        epoch_name = key + SUFFIX_EPOCH % when.epoch1
+        if when.persists:
+            if state["frozen"]:
+                self._file(epoch_name).symlink_to(frozen_name)
+            else:
+                save_state(state, self._file(epoch_name))
+
+        roles = [SUFFIX_BEST_SO_FAR] * is_best + [SUFFIX_LAST] * is_last
+        for role in roles:
+            link = self._file(key + role)
+            if link.exists() or link.is_symlink():
+                link.unlink()
+            if state["frozen"]:
+                link.symlink_to(frozen_name)
+            elif when.persists:
+                link.symlink_to(epoch_name)
+            else:
+                save_state(state, link)  # the role file is the only copy
+
+    def _write_training(self, training_state, when):
+        """The training state; the previous rolling one is deleted."""
+        save_state(training_state,
+                   self._file(FNAME_TRAINING % when.epoch1))
+        if when.checkpointed and when.prev_epoch1:
+            stale = self._file(FNAME_TRAINING % when.prev_epoch1)
+            if stale.exists():
+                stale.unlink()
+
+    def _promote_and_roll(self, key, when, is_last):
+        """Turn a finished _best back into _bestsofar (resume), delete the
+        previous rolling network file (moving it to _bestsofar if it is the
+        best), and finish _bestsofar as _best on the last epoch."""
+        best = self._file(key + SUFFIX_BEST_SO_FAR)
+        if not best.exists():
+            retired = self._file(key + SUFFIX_BEST)
+            if retired.exists():
+                retired.rename(best)
+
+        if when.checkpointed and when.prev_epoch1 \
+                and not when.prev_is_stored:
+            victim = self._file(key + SUFFIX_EPOCH % when.prev_epoch1)
+            if victim.exists():
+                # resolved paths on both sides: the best checkpoint's target
+                # is moved, not deleted
+                if best.exists() and victim.resolve() == best.resolve():
+                    best.unlink()
+                    victim.rename(best)
+                else:
+                    victim.unlink()
+
+        if is_last and best.exists():
+            best.rename(self._file(key + SUFFIX_BEST))
+
+    def load_latest_epoch(self, nepochs):
+        """(network state, training state) of the latest epoch below
+        ``nepochs`` with a training file, or None."""
+        if not self.directory.exists():
+            return None
+        for epoch in reversed(range(nepochs)):
+            training_path = self._file(FNAME_TRAINING % (epoch + 1))
+            if training_path.exists():
+                network = load_checkpoint_any(
+                    self._file("net" + SUFFIX_EPOCH % (epoch + 1)))
+                if "_network_names" in network:
+                    raise NotImplementedError(
+                        "multi-network checkpoints come with the composition "
+                        "slice (ROADMAP §1.6)")
+                return {"net": network}, load_checkpoint_any(training_path)
+        return None
 
     @classmethod
     def load_network(cls, directory):

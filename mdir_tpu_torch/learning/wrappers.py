@@ -135,6 +135,10 @@ class CirtorchWhiten(Wrapper):
 WRAPPERS_LABELS = {
     "cirmultiscale": CirMultiscaleAggregation,
     "fakebatch": FakeBatch,
+    # The train wrapper spec of the CirNetwork scenarios: the train step runs
+    # tuples itself (learning/train_step.py), so on the per-image path this
+    # is the plain fakebatch.
+    "cirfaketuplebatch": FakeBatch,
     "cirwhiten": CirtorchWhiten,
 }
 

@@ -5,7 +5,9 @@ The port of the production path of ``mdir_tpu/ops/preprocess.py``:
 ``pil2np | [apply_clahe[:clip[:space[:grid]]] |
 add_clahe_fromrgb[:clip[:grid[:space]]] | tospace:<space>] | totensor |
 normalize`` onto the device, and ``make_bucketed_chain`` returns the function
-the extractor runs on each chunk's (B, H, W, 3) uint8 bucket.
+the extractor runs on each chunk's (B, H, W, 3) uint8 bucket, and the train
+step on each tuple's bucket (``RawChainInput`` makes the training items raw
+uint8).
 
 Only lab is ported, and always exactly: the lab lattice of the ``lab_n``
 kernel gives the CLAHE input plane and the a/b channels bit-equal to cv2,
@@ -16,6 +18,7 @@ float colorspace conversion after CLAHE raises ``NotImplementedError``
 (ROADMAP §1.3); there is no host path in its place. cv2 itself is not on the
 card's machine: the CPU tests hold these planes against live cv2.
 """
+import numpy as np
 import torch
 
 from . import clahe as clahe_ops
@@ -150,3 +153,20 @@ def make_bucketed_chain(chain):
         return x
 
     return fn
+
+
+class RawChainInput:
+    """The ``__getitem__``-side stand-in for a host chain lowered to the
+    device: training items leave the dataset as raw (H, W, 3) uint8 RGB, and
+    ``make_bucketed_chain`` runs the chain on the card inside the train
+    step (every ported chain starts from the raw RGB)."""
+
+    def __call__(self, *pics):
+        acc = []
+        for pic in pics:
+            if not isinstance(pic, np.ndarray):
+                pic = np.asarray(pic.convert("RGB"), np.uint8)
+            elif pic.dtype != np.uint8:
+                pic = np.clip(pic * 255.0, 0, 255).astype(np.uint8)
+            acc.append(pic)
+        return acc[0] if len(acc) == 1 else acc

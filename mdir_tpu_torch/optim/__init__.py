@@ -1,1 +1,1 @@
-"""Retrieval scores."""
+"""Retrieval scores, training criteria, optimizers and schedulers."""

@@ -7,7 +7,7 @@ import numpy as np
 
 from ..learning import load_network
 from ..learning.validation import initialize_validation
-from ..tools.events import MetricLog
+from ..tools.events import initialize_processor
 
 
 def validate(params, data, device="cuda"):
@@ -23,11 +23,16 @@ def validate(params, data, device="cuda"):
         params["validation"], data=data, params_data=params["data"],
         default_criterion=None, net_defaults=net_defaults)
 
-    log = MetricLog()
+    events = initialize_processor(
+        {"progress": {"print_each": 100,
+                      "key_suffix": "validation/loss:total"}})
     for val, valtask in validation.validations(epoch=None):
         def logger(iteration, size, label, value, dtype, val=val):
-            log.register(iteration, size, "%s/validation/%s" % (val, label),
-                         value, dtype)
+            events.register_data(0, iteration, size,
+                                 "%s/validation/%s" % (val, label), value,
+                                 dtype)
 
         valtask.validate(network, logger)
-    return ({"eval": log.metrics()},)
+    events.close_epoch()
+    return ({"eval": {key: values[0] for key, values
+                      in events.metadata.metadata().items()}},)

@@ -1,6 +1,9 @@
-"""Small shared helpers: data root, parameter merging, paths."""
+"""Small shared helpers: data root, parameter merging, paths and the
+artifact hash check."""
 import copy
+import hashlib
 import os
+import re
 
 
 def get_root():
@@ -26,3 +29,16 @@ def path_join(prefix, path):
     if path.startswith("/"):
         return path
     return os.path.join(prefix, path)
+
+
+def validate_hash(content, path):
+    """Check ``content`` against the sha256 prefix in a file name of the form
+    ``name-<hex prefix>.ext`` (cirtorch's artifact names); other names pass."""
+    match = re.search(r".*-([a-f0-9]{8,})\.[a-zA-Z0-9]{2,}$", path)
+    if not match:
+        return
+    stored = match.group(1)
+    computed = hashlib.sha256(content).hexdigest()[:len(stored)]
+    if computed != stored:
+        raise ValueError("Computed hash '%s' is not consistent with stored "
+                         "hash '%s'" % (computed, stored))

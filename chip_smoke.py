@@ -66,9 +66,24 @@ Phases, one line each with its wall time:
      >= 0.9999); the
      epoch-2 checkpoint reloading bit for bit and the resumed epoch's loss
      finite; every loss finite and positive. Each kernel must launch on
-     the path (gem_l2n in mining only: the step pools under autograd).
-Then one JSON line of kernels (with their launches on the training path,
-mining and train step apart), the nvidia-smi line, and the last line
+     the path (gem_l2n in mining only: the step pools under autograd);
+ 10. the composition path, the paper's "U-Net jointly N/D" eval
+     (examples/iccv19/eval_composition.yml): a P2pUNet night->day
+     translator at full width (nested_levels 7, 64 to 512 channels,
+     reflectpad_divisible:256, mean/std 0.5, random weights from a seed)
+     before the VGG16-GeM (p = 3, Lw 512 x 512 from the seed, scales 1,
+     2^-1/2, 1/2, image size 1024) as a SequentialNetwork, through the
+     composed batched extractor on the same 40 images. gem_l2n must launch
+     once per chunk x scale; the run with the plain pool must agree within
+     1e-4 with the same top-10 ranks; the batched extractor must equal the
+     per-image SequentialNetwork path on three images of different shapes
+     in one chunk, one padded at every scale (rtol 1e-4, atol 1e-5); one
+     U-Net forward at 256 x 256 must match the CPU's within 1e-4 relative.
+     It prints images/s, peak memory and the translator's share of the
+     pass (CUDA events), and holds gem_l2n at every input the path gave it.
+Then one JSON line of kernels (with their launches on the training and
+composition paths, mining and train step apart), the nvidia-smi line, and
+the last line
 {"ok": true, "device": {...}}. Any failure raises (non-zero exit, no last
 line). Without a card, or without the port beside it, it fails at once.
 """
@@ -140,6 +155,17 @@ NARROW_SHAPES = [(1020, 1026), (1000, 1021), (683, 1026), (7, 9), (1, 1)]
 # rounding; clahe_interp 8 for the two axes' coordinates, 11 for the blend,
 # 3 for rint and the clamp; clahe_tile_luts one count per padded pixel plus
 # about 10 per bin of each tile
+# phase 10: the U-Net jointly N/D composition (the translator's pad divisor
+# is 2^8: nested_levels 7 runs 8 stride-2 stages)
+UNET_MODEL = {"architecture": "p2p_unet", "in_channels": 3,
+              "out_channels": 3, "nested_levels": 7}
+UNET_DIVISOR = 256
+UNET_DATA = {"mean_std": [[0.5] * 3, [0.5] * 3],
+             "transforms": "pil2np | totensor | normalize"}
+# three shapes of one chunk key; (1000, 750) needs a pad at every scale
+UNET_CHECK_SHAPES = [(1024, 768), (1000, 750), (990, 740)]
+UNET_CHECK_SIDE = 256  # the card-against-CPU U-Net forward
+UNET_RTOL, UNET_ATOL = 1e-4, 1e-5  # batched against per-image
 LAB_OPS_PER_PIXEL = 60
 INTERP_OPS_PER_PIXEL = 22
 LUT_OPS_PER_BIN = 10
@@ -652,7 +678,8 @@ def clahe_path_phase(device, db, queries, gnd, rng):
     say("clahe", "small input, card against CPU: max |desc diff| %.2e"
         % cross_err)
     return {"launches": launches, "inputs": chain_in, "gem_inputs": gem_in,
-            "grid": chain_from_transform(transform).clahe_params[1]}
+            "grid": chain_from_transform(transform).clahe_params[1],
+            "whiten_path": whiten_path}
 
 
 def clahe_timing_phase(clahe, lab_trilinear, inputs, grid):
@@ -983,6 +1010,183 @@ def train_phase(device, clahe, lab_trilinear, pooling_kernel):
     return {"launches": launches, "gem_err": gem_err}
 
 
+def conv_flops(model, x):
+    """``model(x)`` and the operations of its convolutions on x, from their
+    shapes: 2 per multiply-add, every tap of a transposed conv counted."""
+    total = []
+
+    def hook(module, inputs, output):
+        taps = module.kernel_size[0] * module.kernel_size[1]
+        if isinstance(module, torch.nn.ConvTranspose2d):
+            total.append(2 * inputs[0].numel() * module.out_channels * taps)
+        else:
+            total.append(2 * output.numel() * module.in_channels * taps)
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))]
+    try:
+        return model(x), sum(total)
+    finally:
+        for handle in handles:
+            handle.remove()
+
+
+def composition_network(device, whiten_path):
+    """The U-Net jointly N/D composition: P2pUNet -> VGG16-GeM, frozen."""
+    from mdir_tpu_torch.learning.network import (CirNetwork,
+                                                 SequentialNetwork,
+                                                 SingleNetwork)
+    from mdir_tpu_torch.models import initialize_model
+
+    translator = SingleNetwork(
+        initialize_model(UNET_MODEL, device=device, seed=SEED),
+        SingleNetwork.NetworkParams(model=dict(UNET_MODEL), runtime={
+            "wrappers": "reflectpad_divisible:%d" % UNET_DIVISOR,
+            "data": dict(UNET_DATA)}))
+    embedder = CirNetwork(
+        initialize_model(CLAHE_MODEL, device=device, seed=SEED),
+        CirNetwork.NetworkParams(model=dict(CLAHE_MODEL), runtime={
+            "wrappers": {"train": None, "eval": {
+                "0_cirwhiten": {"whitening": whiten_path,
+                                "dimensions": None},
+                "1_cirmultiscale": {"scales": SCALES}}}}))
+    return SequentialNetwork({"translate": translator, "embed": embedder},
+                             ["translate", "embed"], frozen=True)
+
+
+def composition_phase(device, db, queries, gnd, whiten_path, pooling_kernel,
+                      gem_l2n_plain):
+    """Phase 10: the U-Net jointly N/D composition through the composed
+    extractor, its checks, and what the kernels line needs."""
+    from mdir_tpu_torch.data.transforms import initialize_transforms
+    from mdir_tpu_torch.models import initialize_model
+    from mdir_tpu_torch.ops.ranking import compute_map, rank_database
+    from mdir_tpu_torch.parallel.extract import (ComposedExtractor,
+                                                 _plain_ingress)
+
+    network = composition_network(device, whiten_path)
+    data = network.network_params.runtime["data"]
+    mean_std = _plain_ingress(initialize_transforms(data["transforms"],
+                                                    data["mean_std"]))
+    check(list(mean_std) == UNET_DATA["mean_std"], ("the head's mean/std",
+                                              mean_std))
+
+    def run_path(images_sets, wrap_translate=None):
+        out, chunks = [], 0
+        for images in images_sets:
+            extractor = ComposedExtractor(network, mean_std)
+            check(extractor.divisor == UNET_DIVISOR
+                  and extractor.host_dtype == np.uint8
+                  and extractor.msp == PATH_P,
+                  ("composed extractor", extractor.divisor, extractor.msp))
+            if wrap_translate is not None:
+                extractor.translate = wrap_translate(extractor.translate)
+            for i, img in enumerate(images):
+                extractor.add(i, img)
+            out.append(extractor.finish(len(images)))
+            chunks += extractor.chunks
+        return out, chunks
+
+    def ranks_of(out):
+        vecs, qvecs = (torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                       for v in out)
+        return rank_database(vecs, qvecs).cpu().numpy()
+
+    gem_in = []
+    with mock.patch.object(pooling_kernel, "gem_l2n",
+                           recording_pool(pooling_kernel.gem_l2n, gem_in)):
+        run_path((db, queries))  # warm-up: cuDNN plans, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events, padded = [], []
+
+    def timing(translate):
+        def fn(x):
+            padded.append(x.shape[0] * x.shape[2] * x.shape[3])
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            y = translate(x)
+            end.record()
+            events.append((start, end))
+            return y
+        return fn
+
+    pooling_kernel.reset_launches()
+    t = time.perf_counter()
+    out, chunks = run_path((db, queries), timing)
+    ranks = ranks_of(out)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launches = pooling_kernel.launches
+    peak = torch.cuda.max_memory_allocated()
+    translate_ms = sum(a.elapsed_time(b) for a, b in events)
+    n_images = len(db) + len(queries)
+    say("unet", "P2pUNet (nested %d, reflectpad_divisible:%d) -> VGG16-GeM "
+        "%d-d, scales %s, Lw: %d images in %d chunks, %.2f s, %.1f "
+        "images/s, peak %.2f GB; translator %.1f ms (%.1f%% of the pass)"
+        % (UNET_MODEL["nested_levels"], UNET_DIVISOR, CLAHE_DIM,
+           [round(x, 4) for x in SCALES], n_images,
+           chunks, seconds, n_images / seconds, peak / 1e9, translate_ms,
+           100 * translate_ms / (1e3 * seconds)))
+    for v in out:
+        check(v.shape[0] == CLAHE_DIM and np.isfinite(v).all(),
+              "finite descriptors of the composition path")
+        norms = np.linalg.norm(v, axis=0)
+        check(np.abs(norms - 1).max() < 1e-4, ("unit norms", norms))
+    check(launches == chunks * len(SCALES) > 0,
+          ("gem_l2n launches == chunks x scales", launches, chunks))
+    mean_ap, _, pr, _ = compute_map(ranks, gnd, kappas=(1, 5, 10))
+    say("unet", "gem_l2n launches %d = %d chunks x %d scales; mAP %.4f, "
+        "mP@1/5/10 %s" % (launches, chunks, len(SCALES), mean_ap,
+                          np.round(pr, 4).tolist()))
+
+    with mock.patch.object(pooling_kernel, "gem_l2n", gem_l2n_plain):
+        pout, _ = run_path((db, queries))
+    desc_err = max(np.abs(a - b).max() for a, b in zip(out, pout))
+    check(desc_err <= DESC_ATOL, ("descriptors vs plain pool", desc_err))
+    check((ranks[:10] == ranks_of(pout)[:10]).all(),
+          "top-10 ranks vs plain pool")
+    say("unet", "plain pool on the card: max |desc diff| %.2e, top-10 ranks "
+        "equal" % desc_err)
+
+    # the batched extractor against the per-image SequentialNetwork path
+    images = [np.ascontiguousarray(db[0][:h, :w])
+              for h, w in UNET_CHECK_SHAPES]
+    (batched,), chunks = run_path((images,))
+    check(chunks == 1, ("the check's images make one chunk", chunks))
+    mean, std = (np.asarray(v, np.float32) for v in mean_std)
+    per_image = np.stack([
+        network((img.astype(np.float32) / 255.0 - mean) / std).cpu().numpy()
+        for img in images], axis=1)
+    diff = np.abs(batched - per_image)
+    check((diff <= UNET_ATOL + UNET_RTOL * np.abs(per_image)).all(),
+          ("batched vs per-image", float(diff.max())))
+    say("unet", "batched against per-image on %s (one chunk): max |diff| "
+        "%.2e, within rtol %g, atol %g"
+        % (UNET_CHECK_SHAPES, diff.max(), UNET_RTOL, UNET_ATOL))
+
+    gen = torch.Generator().manual_seed(SEED)
+    x = torch.rand((1, 3, UNET_CHECK_SIDE, UNET_CHECK_SIDE),
+                   generator=gen) * 2 - 1
+    cpu_unet = initialize_model(UNET_MODEL, device="cpu", seed=SEED)
+    with torch.no_grad():
+        card = network["translate"].model(x.to(device)).cpu()
+        cpu, flops = conv_flops(cpu_unet, x)
+    rel = float((card - cpu).abs().max() / cpu.abs().max())
+    check(rel <= DESC_ATOL, ("U-Net card vs CPU", rel))
+    say("unet", "U-Net forward at %d x %d, card against CPU: max |diff| / "
+        "max |CPU| %.2e" % (UNET_CHECK_SIDE, UNET_CHECK_SIDE, rel))
+    # the translator's work scales with its padded input's area
+    work = flops / UNET_CHECK_SIDE ** 2 * sum(padded)
+    say("unet", "translator: %.1f GFLOP a (1024, 768) input, %.2f TFLOP "
+        "over the pass's %.1f Mpx of padded input, %.1f TFLOP/s (float32, "
+        "TF32 off)" % (flops / UNET_CHECK_SIDE ** 2 * 1024 * 768 / 1e9,
+                       work / 1e12, sum(padded) / 1e6,
+                       work / translate_ms / 1e9))
+    return {"launches": launches, "gem_inputs": gem_in}
+
+
 def gem_train_inputs(pooling_kernel, gem_l2n_plain, inputs, device):
     """The pool kernel at every (shape, extents) mining gave it, against
     plain on random values."""
@@ -1190,6 +1394,13 @@ def main():
 
     # 9. the train stage: mining and train steps on the same kernels
     trained = train_phase(device, clahe, lab_trilinear, pooling_kernel)
+
+    # 10. the U-Net jointly N/D composition path
+    composed = composition_phase(device, db, queries, gnd,
+                                 path["whiten_path"], pooling_kernel,
+                                 gem_l2n_plain)
+    unet_pool = gem_path_phase("U-Net VGG16", pooling_kernel, gem_l2n_plain,
+                               composed["gem_inputs"], gen, device)
     sources = {"lab_n": ("mdir_tpu_torch/csrc/lab_n.cu",
                          "mdir_tpu/ops/lab_trilinear.py:493",
                          ["mdir_tpu/ops/lab_trilinear.py:359"],
@@ -1209,12 +1420,16 @@ def main():
         "replaces": "mdir_tpu/ops/pooling_pallas.py:59",
         "launches": launches,
         "max_abs_err": max(max_err, resnet_pool["max_abs_err"],
-                           vgg_pool["max_abs_err"], trained["gem_err"]),
+                           vgg_pool["max_abs_err"], trained["gem_err"],
+                           unet_pool["max_abs_err"]),
         **resnet_pool["timed"], "library_ms": None,
         "small_batch": resnet_pool["small_batch"],
         "clahe_path_launches": path["launches"]["gem_l2n"],
         "clahe_path": dict(vgg_pool["timed"],
-                           small_batch=vgg_pool["small_batch"])}]
+                           small_batch=vgg_pool["small_batch"]),
+        "composition_path_launches": composed["launches"],
+        "composition_path": dict(unet_pool["timed"],
+                                 small_batch=unet_pool["small_batch"])}]
     for name, (source, replaces, also, wrappers) in sources.items():
         kernels.append(dict(
             {"name": name, "route": "cuda", "source": source,
@@ -1223,6 +1438,7 @@ def main():
             also_replaces=also, off_path_wrappers=wrappers))
     for entry in kernels:
         entry["train_path_launches"] = trained["launches"][entry["name"]]
+        entry.setdefault("composition_path_launches", 0)
         if entry["name"] in REDESIGNED:
             entry["redesigned"] = REDESIGNED[entry["name"]]
     print(json.dumps({"kernels": kernels}))

@@ -17,3 +17,15 @@ def resolve_device(device="cuda"):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     return device
+
+
+def check_compute_dtype(dtype):
+    """The port computes in float32 with TF32 off. ``auto`` means float32
+    until the bfloat16 policy and its first-chunk guard are ported (ROADMAP
+    §1.2), where the JAX package picks bfloat16 on an accelerator."""
+    if dtype == "bfloat16":
+        raise NotImplementedError(
+            "bfloat16 compute and its guard are not ported yet (ROADMAP "
+            "§1.2); use compute_dtype float32 or auto")
+    if dtype not in (None, "auto", "float32"):
+        raise ValueError("unknown compute_dtype %r" % (dtype,))

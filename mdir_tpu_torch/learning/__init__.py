@@ -4,8 +4,9 @@ from .network import initialize_network
 
 
 def load_network(params, device="cuda"):
-    """Network from ``params["path"]`` (a checkpoint file or directory) with
-    ``params["runtime"]`` applied, on ``device``."""
+    """Network from ``params["path"]`` (a checkpoint file or directory; a
+    composition from either of its forms) with ``params["runtime"]``
+    applied, on ``device``."""
     state = Checkpoints.load_network(params["path"])
     return initialize_network(None, device, state, params["runtime"])
 

@@ -15,6 +15,12 @@ two cadences: ``store_every`` epochs are kept, ``checkpoint_every`` epochs
 roll (the previous rolling checkpoint is deleted unless it was stored or is
 the best so far), and the last epoch always persists. Every file is written
 to a temporary name and moved into place with ``os.replace``.
+
+A composition's checkpoint has two forms on disk, both read here
+(``_expand_multinet``): the member payloads embedded under
+``_networks_included`` in one file (the reference's single-file ``.pth``,
+the paper's form), or ``_network_names`` naming sibling files of an
+``epochs/`` directory (what the JAX package writes).
 """
 import os
 import pickle
@@ -88,6 +94,23 @@ def save_state(state, path):
     tmp = str(path) + ".tmp"
     torch.save(state, tmp)
     os.replace(tmp, path)
+
+
+def _expand_multinet(checkpoint, load_sibling=None):
+    """A network checkpoint as ``{name: payload}``: ``net`` and, for a
+    composition, its members (embedded, or siblings through
+    ``load_sibling``)."""
+    states = {"net": checkpoint}
+    for name, state in checkpoint.pop("_networks_included", {}).items():
+        if name in states:
+            raise ValueError("member %r appears twice" % name)
+        states[name] = state
+    names = checkpoint.pop("_network_names", []) if load_sibling else []
+    for name in names:
+        if name in states:
+            raise ValueError("member %r appears twice" % name)
+        states[name] = load_sibling(name)
+    return states
 
 
 class _Cadence:
@@ -226,15 +249,18 @@ class Checkpoints:
 
     @classmethod
     def load_network(cls, directory):
-        """Load a single-network state ``{"net": payload}`` from a directory
-        (its best checkpoint) or a file."""
+        """A network state ``{"net": payload, <member>: payload, ...}`` from
+        a directory (its best checkpoint, with its siblings) or a file (with
+        its embedded members)."""
         if str(directory).startswith(("http://", "https://")):
             raise ValueError("the port does not download checkpoints; fetch "
                              "%s and pass its local path" % directory)
         path = Path(directory)
         if path.is_dir():
-            best = path / ("net" + SUFFIX_BEST)
-            if not best.exists() and (path / "net_best.pth").exists():
-                best = path / "net_best.pth"
-            return {"net": load_checkpoint_any(best)}
-        return {"net": load_checkpoint_any(os.fspath(path))}
+            suffix = SUFFIX_BEST
+            if not (path / ("net" + suffix)).exists() \
+                    and (path / "net_best.pth").exists():
+                suffix = "_best.pth"
+            sibling = lambda name: load_checkpoint_any(path / (name + suffix))
+            return _expand_multinet(sibling("net"), sibling)
+        return _expand_multinet(load_checkpoint_any(os.fspath(path)))

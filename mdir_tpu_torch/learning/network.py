@@ -13,8 +13,15 @@ checkpoint on resume. ``CirNetwork`` injects the model's mean/std as data
 defaults and puts GeM's ``p`` in a ``pool`` parameter group with 10x the
 learning rate and no weight decay. Descriptor models keep the reference's
 D x N output convention at ``__call__``. BatchNorm stays frozen in training
-(``models/layers.py``). ``SequentialNetwork`` comes with the composition
-slice (ROADMAP §1.6).
+(``models/layers.py``).
+
+``SequentialNetwork`` composes two networks (a U-Net translator, then an
+embedder) and presents them as one: the tail's wrappers move up to the
+composition, the head's data defaults become its defaults, and its
+checkpoint is the JAX package's multi-net payload (each member's payload
+under its name, a ``net`` header with ``sequence`` and
+``network_hierarchy``). Training a composition needs
+``OptimizerAlternation`` (ROADMAP §1.6), so ``train()`` raises.
 """
 import copy
 import time
@@ -52,6 +59,16 @@ def _inherit_runtime(requested, stored):
         return stored
     return {key: stored[key] if value == "load_from_checkpoint" else value
             for key, value in requested.items()}
+
+
+def _image_batch(image, device):
+    """One image for the per-image path as a (1, C, H, W) float tensor on
+    ``device``: an HWC array (the host transform's output), or a 4-d NCHW
+    tensor passed on between networks."""
+    if torch.is_tensor(image) and image.dim() == 4:
+        return image.to(device)
+    x = torch.as_tensor(np.asarray(image, np.float32), device=device)
+    return x.permute(2, 0, 1)[None].contiguous()
 
 
 def _restore_weights(model, model_state):
@@ -104,6 +121,10 @@ class SingleNetwork:
         self.model.eval()
         return self
 
+    def freeze(self):
+        self.frozen = True
+        return self.eval()
+
     def parameters(self, _optimizer_opts):
         """Trainable parameters for the optimizer (None when frozen):
         ``{"params": {name: param}, "labels": {name: group}, "opts":
@@ -118,14 +139,16 @@ class SingleNetwork:
 
     @torch.no_grad()
     def inference(self, image):
-        """Model on one (1, C, H, W) image: descriptors as (D, 1) columns."""
-        return self.model(image).T
+        """Model on one (1, C, H, W) image: descriptors as (D, 1) columns,
+        images as they come."""
+        out = self.model(image)
+        return out.T if "pooling" in self.model.meta else out
 
     def __call__(self, image):
-        """One HWC image (numpy or tensor) through the stage's wrappers."""
-        x = torch.as_tensor(np.asarray(image, np.float32), device=self.device)
-        x = x.permute(2, 0, 1)[None].contiguous()
-        return self.wrappers[self.stage](x, self.inference, self.model)
+        """One image (HWC array, or NCHW tensor) through the stage's
+        wrappers."""
+        return self.wrappers[self.stage](_image_batch(image, self.device),
+                                         self.inference, self.model)
 
     # --- construction ------------------------------------------------------
 
@@ -254,8 +277,222 @@ class CirNetwork(SingleNetwork):
         return groups
 
 
+# --- sequential composition -------------------------------------------------
+
+def _flatten_substates(networks, sequence):
+    """Members' payloads, each keyed by its name, and the hierarchy map of
+    any nested entries they carry (already prefixed)."""
+    flat, hierarchy = {}, {}
+    for name in sequence:
+        substate = networks[name].state_dict()
+        substate[name] = substate.pop("net")
+        clash = set(flat) & set(substate)
+        if clash:
+            raise ValueError("member states collide on %s" % sorted(clash))
+        hierarchy[name] = [key for key in substate if key != name]
+        flat.update(substate)
+    return flat, hierarchy
+
+
+def _nest_substates(flat, hierarchy, name):
+    """Inverse of ``_flatten_substates`` for one member."""
+    nested = {key: flat[key] for key in hierarchy[name]}
+    nested["net"] = flat[name]
+    return nested
+
+
+def _route_runtime_overrides(runtime, sequence):
+    """A composition's runtime per member: wrappers and the compute keys
+    (compute_dtype, pallas, param_sharding) to the tail, data defaults to
+    the head. Pops what it routes from ``runtime``."""
+    routed = {name: None for name in sequence}
+    if runtime and "wrappers" in runtime:
+        routed[sequence[-1]] = {"wrappers": runtime.pop("wrappers")}
+    if runtime and "data" in runtime:
+        routed[sequence[0]] = {"data": runtime.pop("data")}
+    for key in ("compute_dtype", "pallas", "param_sharding"):
+        if runtime and key in runtime:
+            tail = routed[sequence[-1]] or {}
+            tail[key] = runtime.pop(key)
+            routed[sequence[-1]] = tail
+    if runtime:
+        raise ValueError("a composition's runtime takes wrappers, data, "
+                         "compute_dtype, pallas and param_sharding, not %s"
+                         % sorted(runtime))
+    return routed
+
+
+class SequentialNetwork:
+    """A 2-net pipeline (a U-Net translator, then an embedder).
+
+    The composition presents itself as one network: the tail's wrappers
+    move up to the composition (the member keeps none), the head's data
+    defaults become the composition's, and the channels must match at the
+    junction. Its ``model`` is the tail's (the multiscale wrapper reads its
+    GeM p from it).
+    """
+
+    NetworkParams = namedtuple("NetworkParams", ["runtime"])
+
+    def __init__(self, networks, sequence, frozen=False):
+        if len(networks) != 2 or set(networks) != set(sequence):
+            raise ValueError("a composition is two networks in sequence, "
+                             "got %s for %s" % (sorted(networks), sequence))
+        self.sequence = list(sequence)
+        self.networks = networks
+        head = networks[self.sequence[0]]
+        tail = networks[self.sequence[-1]]
+        self.model = tail.model
+        self.wrappers, tail.wrappers = \
+            tail.wrappers, _build_stage_wrappers("")
+        self.network_params = self.NetworkParams(
+            {"wrappers": tail.network_params.runtime.get("wrappers"),
+             "data": head.network_params.runtime.get("data"),
+             "param_sharding":
+                 tail.network_params.runtime.get("param_sharding")})
+        if head.meta["out_channels"] != tail.meta["in_channels"]:
+            raise ValueError("%s gives %s channels, %s takes %s"
+                             % (self.sequence[0], head.meta["out_channels"],
+                                self.sequence[-1], tail.meta["in_channels"]))
+        self.meta = {"in_channels": head.meta["in_channels"],
+                     "out_channels": tail.meta["out_channels"]}
+        self.frozen = frozen
+        self.stage = None
+        if frozen:
+            self.eval()
+
+    @property
+    def device(self):
+        return self.model.device
+
+    def __getitem__(self, key):
+        return self.networks[key]
+
+    def __call__(self, image):
+        """One image (HWC array, or NCHW tensor) through the composition's
+        wrappers around ``forward``."""
+        return self.wrappers[self.stage](_image_batch(image, self.device),
+                                         self.forward, self.model)
+
+    def forward(self, image):
+        """Each member on the image in turn, with its own wrappers."""
+        for name in self.sequence:
+            image = self.networks[name](image)
+        return image
+
+    def train(self):
+        raise NotImplementedError(
+            "training a composition needs OptimizerAlternation, which is "
+            "not ported yet (ROADMAP §1.6)")
+
+    def eval(self):
+        for name in self.sequence:
+            self.networks[name].eval()
+        self.stage = EVAL
+        return self
+
+    def freeze(self):
+        for name in self.sequence:
+            self.networks[name].freeze()
+        self.frozen = True
+        self.stage = EVAL
+        return self
+
+    @classmethod
+    def initialize(cls, params, device="cuda"):
+        """A composition from its scenario section: ``sequence``, an
+        optional composition-level ``runtime`` (routed to the members), and
+        one section per member."""
+        device = resolve_device(device)
+        sequence = params.pop("sequence").split(",")
+        routed = _route_runtime_overrides(params.pop("runtime", None),
+                                          sequence)
+        for name, overrides in routed.items():
+            if overrides:
+                params[name].setdefault("runtime", {}).update(overrides)
+        built = {name: NETWORKS[spec.pop("type")].initialize(spec, device)
+                 for name, spec in params.items()}
+        return cls(built, sequence)
+
+    def overlay_params(self, new_params):
+        """A frozen copy with members' runtimes overlaid. A falsy member
+        entry keeps the member; the tail then keeps the composition's live
+        wrappers, which ``__init__`` moved up."""
+        if not new_params:
+            return self
+        missing = set(self.sequence) - set(new_params)
+        if missing:
+            raise ValueError("an overlay names every member; missing %s"
+                             % sorted(missing))
+        overlaid = {}
+        for name in self.sequence:
+            sub = self.networks[name]
+            if new_params.get(name):
+                overlaid[name] = sub.overlay_params(new_params[name])
+            else:
+                sub = copy.copy(sub)
+                if name == self.sequence[-1]:
+                    sub.wrappers = dict(self.wrappers)
+                overlaid[name] = sub
+        return type(self)(overlaid, self.sequence, frozen=True)
+
+    def state_dict(self):
+        """The multi-net payload: each member's under its name and the
+        ``net`` header."""
+        flat, hierarchy = _flatten_substates(self.networks, self.sequence)
+        flat["net"] = {"type": type(self).__name__,
+                       "frozen": self.frozen,
+                       "sequence": list(self.sequence),
+                       "network_hierarchy": hierarchy}
+        return flat
+
+    @classmethod
+    def initialize_from_state(cls, state_dict, device="cuda", params=None,
+                              runtime=None):
+        """A composition from its multi-net payload (``runtime`` routed to
+        the members). With the scenario's ``params`` the sequence and each
+        member's spec must match the checkpoint's."""
+        device = resolve_device(device)
+        state_dict = dict(state_dict)
+        header = state_dict.pop("net")
+        if header.get("type") != cls.__name__ or header.keys() != {
+                "type", "frozen", "sequence", "network_hierarchy"}:
+            raise ValueError("not a %s header: %s"
+                             % (cls.__name__, sorted(header)))
+        sequence = list(header["sequence"])
+        hierarchy = header["network_hierarchy"]
+        if set(sequence) != set(hierarchy):
+            raise ValueError("sequence %s against hierarchy %s"
+                             % (sequence, sorted(hierarchy)))
+        routed = _route_runtime_overrides(copy.deepcopy(runtime), sequence)
+        if params is not None:
+            declared = params["sequence"].split(",")
+            require(sequence == declared, "sequence", sequence, declared)
+            yaml_routed = _route_runtime_overrides(
+                copy.deepcopy(params.get("runtime")), sequence)
+            for name, overrides in yaml_routed.items():
+                if overrides:
+                    params[name].setdefault("runtime", {}).update(overrides)
+
+        restored = {}
+        for name in hierarchy:
+            member = _nest_substates(state_dict, hierarchy, name)
+            netparams = None
+            if params is not None:
+                netparams = params[name]
+                declared_type = netparams.pop("type", None)
+                require(declared_type in (None, member["net"]["type"]),
+                        "%s type" % name, member["net"]["type"],
+                        declared_type)
+            restored[name] = NETWORKS[member["net"]["type"]] \
+                .initialize_from_state(member, device, netparams,
+                                       routed[name])
+        return cls(restored, sequence, frozen=header["frozen"])
+
+
 NETWORKS = {
     "SingleNetwork": SingleNetwork,
+    "SequentialNetwork": SequentialNetwork,
     "CirNetwork": CirNetwork,
 }
 

@@ -36,6 +36,7 @@ gradient. Training runs in float32: ``compute_dtype: bfloat16`` (ROADMAP
 import numpy as np
 import torch
 
+from ..device import check_compute_dtype
 from ..models.trunks import apply_valid_mask
 from ..ops.clahe import aux_to_device, clahe_bucket_aux
 from ..ops.preprocess import make_bucketed_chain
@@ -72,14 +73,8 @@ def prepare_batch(batch_images, batch_targets,
 
 
 def _check_runtime(runtime, compute_dtype, param_sharding):
-    dtype = runtime.get("compute_dtype") if compute_dtype == "auto" \
-        else compute_dtype
-    if dtype == "bfloat16":
-        raise NotImplementedError(
-            "bfloat16 training and its guard are not ported yet (ROADMAP "
-            "§1.2); use compute_dtype float32 or auto")
-    if dtype not in (None, "auto", "float32"):
-        raise ValueError("unknown compute_dtype %r" % (dtype,))
+    check_compute_dtype(runtime.get("compute_dtype")
+                        if compute_dtype == "auto" else compute_dtype)
     sharding = runtime.get("param_sharding") if param_sharding == "auto" \
         else param_sharding
     if sharding not in (None, "dp", "none"):

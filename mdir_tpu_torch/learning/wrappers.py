@@ -1,4 +1,5 @@
-"""Network eval wrappers: multi-scale aggregation and learned whitening.
+"""Network wrappers: multi-scale aggregation, learned whitening and the
+translators' pad to a divisible size.
 
 The semantics of ``mdir_tpu/learning/wrappers.py`` (reference
 ``mdir/components/data/wrapper.py``): Compose runs each wrapper's
@@ -8,10 +9,12 @@ dicts are kept. On the per-image path a tensor is one (1, C, H, W) image or
 a (D,) descriptor. The batched extractor (``parallel/extract.py``) computes
 what these wrappers compute, in one pass per shape bucket.
 """
+import math
 import pickle
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..ops.resize import resize_bilinear
 from ..ops.whitening import whitenapply
@@ -48,6 +51,38 @@ class Wrapper:
 
     def postprocess(self, tensor, _model, _metadata):
         return tensor
+
+
+def divisible_padding(size, divisor):
+    """(left, right, top, bottom) that pad an (H, W) ``size`` to multiples
+    of ``divisor``: floor before, ceil after."""
+    padh, padw = ((-(-d // divisor) * divisor - d) / 2 for d in size)
+    return (math.floor(padw), math.ceil(padw), math.floor(padh),
+            math.ceil(padh))
+
+
+class ReflectPadMakeDivisible(Wrapper):
+    """Pad an image's H, W to a multiple of N and crop the output back.
+
+    It replicates the edge pixels, despite its name, as the JAX package's
+    wrapper does (``jnp.pad(mode="edge")``). It crops images only: on a
+    descriptor net it raises, where the JAX package fails on the crop.
+    """
+
+    def __init__(self, divisible_by):
+        self.divisible_by = int(divisible_by)
+
+    def preprocess(self, tensor, _model):
+        padding = divisible_padding(tensor.shape[-2:], self.divisible_by)
+        return F.pad(tensor, padding, mode="replicate"), padding
+
+    def postprocess(self, tensor, _model, padding):
+        if tensor.dim() != 4:
+            raise ValueError("reflectpad_divisible crops (N, C, H, W) "
+                             "images, not a %d-d output" % tensor.dim())
+        left, right, top, bottom = padding
+        h, w = tensor.shape[-2:]
+        return tensor[..., top:h - bottom, left:w - right]
 
 
 class CirMultiscaleAggregation(Wrapper):
@@ -133,6 +168,7 @@ class CirtorchWhiten(Wrapper):
 
 
 WRAPPERS_LABELS = {
+    "reflectpad_divisible": ReflectPadMakeDivisible,
     "cirmultiscale": CirMultiscaleAggregation,
     "fakebatch": FakeBatch,
     # The train wrapper spec of the CirNetwork scenarios: the train step runs

@@ -1,9 +1,12 @@
-"""Model registry: label -> model factory (the ``cirnet`` retrieval nets).
+"""Model registry: label -> model factory (``mdir_tpu/models/__init__.py``
+``MODEL_LABELS``): ``identity``, the U-Net translators, the pixel-wise
+autoencoders and the ``cirnet`` retrieval nets.
 
 ``initialize_model`` takes the params dict of ``mdir_tpu.models``
 (``architecture`` key plus the factory's keys) and a ``device``. Weights are
 random from an explicit seed; nothing is downloaded, so ``pretrained: true``
 raises. A whitening given as a local pkl path fills the ``whiten`` layer.
+Image-to-image nets carry ``meta`` ``in_channels``/``out_channels``.
 """
 import math
 import pickle
@@ -12,18 +15,23 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from . import autoencoder, unet
 from .retrievalnet import ImageRetrievalNet
 
 
 def init_weights(model, seed=0):
-    """Seeded random weights: conv and linear weights ~ N(0, 1/fan_in)
-    (flax's default lecun scale), biases 0; BatchNorm and GeM p keep their
-    defaults (identity statistics, p = 3)."""
+    """Seeded random weights: conv, transposed conv and linear weights
+    ~ N(0, 1/fan_in) (flax's default lecun scale), biases 0; BatchNorm and
+    GeM p keep their defaults (identity statistics, p = 3)."""
     generator = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for module in model.modules():
-            if isinstance(module, (torch.nn.Conv2d, torch.nn.Linear)):
+            if isinstance(module, (torch.nn.Conv2d, torch.nn.ConvTranspose2d,
+                                   torch.nn.Linear)):
                 fan_in = module.weight[0].numel()
+                if isinstance(module, torch.nn.ConvTranspose2d):
+                    # (in, out, kh, kw): each output sums in * kh * kw taps
+                    fan_in = module.weight[:, 0].numel()
                 module.weight.copy_(torch.randn(
                     module.weight.shape, generator=generator)
                     / math.sqrt(fan_in))
@@ -68,7 +76,44 @@ def _make_cirnet(device, seed=0, **params):
     return model.eval().to(device)
 
 
+class Identity(unet.ImageModel):
+
+    def __init__(self):
+        super().__init__(None, None)
+        self.meta = {}
+
+    def forward(self, x):
+        return x
+
+
+def _make_identity(device, _seed, **params):
+    assert not params, params.keys()
+    return Identity().eval().to(device)
+
+
+def _make_unet(cls):
+    """Factory of an image-to-image net; ``hidden`` becomes a tuple."""
+    def factory(device, seed, in_channels, out_channels, **params):
+        if params.get("hidden") is not None:
+            params["hidden"] = tuple(params["hidden"])
+        model = cls(in_channels=in_channels, out_channels=out_channels,
+                    **params)
+        return init_weights(model, seed).eval().to(device)
+    return factory
+
+
 MODEL_LABELS = {
+    "identity": _make_identity,
+    "orig_unet": _make_unet(unet.OrigUNet),
+    "p2p_unet": _make_unet(unet.P2pUNet),
+    "outconv_unet": _make_unet(unet.OutconvP2pUNet),
+    "outconv_dynint_unet": _make_unet(unet.OutconvP2pUNetDynamicInterpolate),
+    "shallow_p2p_unet": _make_unet(unet.ShallowP2pUNet),
+    "inconv_p2p_unet": _make_unet(unet.InconvP2pUNet),
+    "aligned_p2p_unet": _make_unet(unet.AlignedP2pUNet),
+    "pixelconv_regr": _make_unet(autoencoder.PixelConvRegr),
+    "pixelconv_res": _make_unet(autoencoder.PixelConvRes),
+    "autoencoder_regr": _make_unet(autoencoder.AutoencoderRegr),
     "cirnet": _make_cirnet,
 }
 

@@ -1,13 +1,17 @@
 """Map the JAX package's model variables onto the port's ``state_dict``.
 
-``mdir_tpu`` keeps a retrieval net's weights as a flax tree
+``mdir_tpu`` keeps a model's weights as a flax tree
 (``{"params": ..., "batch_stats": ...}``, NHWC/HWIO). Given that tree as
 numpy arrays -- from a JAX model in memory or from its msgpack checkpoint --
 ``from_jax_variables`` returns the port's state dict (cirtorch names, OIHW):
 
 * conv ``<m>/conv/kernel`` (kH, kW, I, O)  -> ``<m>.weight`` (O, I, kH, kW)
+* transposed conv ``<m>/kernel`` (kH, kW, I, O) -> ``<m>.weight``
+  (I, O, kH, kW), with no spatial flip: the JAX layer transposes the kernel
+  itself (``transpose_kernel=True``), so it computes what torch's
+  ``ConvTranspose2d`` computes with the same numbers
 * dense ``<m>/dense/kernel`` (I, O)        -> ``<m>.weight`` (O, I)
-* ``<m>/conv|dense/bias``                   -> ``<m>.bias``
+* ``<m>/conv|dense/bias``, ``<m>/bias``     -> ``<m>.bias``
 * batchnorm ``<m>/bn/{scale,bias}``         -> ``<m>.{weight,bias}``
 * ``batch_stats/<m>/bn/{mean,var}``         -> ``<m>.running_{mean,var}``
 * ``pool/p``                                -> ``pool.p``
@@ -16,6 +20,8 @@ ResNet module names map to cirtorch's ``features`` indices: conv1 -> 0,
 bn1 -> 1, ``layer<L>_<B>`` -> ``<L+3>.<B>``, ``downsample_<i>`` ->
 ``downsample.<i>``. The alexnet/vgg stacks already carry them:
 ``features/<idx>/conv/{kernel,bias}`` -> ``features.<idx>.{weight,bias}``.
+The U-Nets and autoencoders carry their torch names already (``outerblock``,
+``nested``, the ``Sequential`` indices, ``model_<i>``).
 """
 import re
 from collections import OrderedDict
@@ -54,7 +60,7 @@ def _leaves(tree, prefix=()):
 
 
 def from_jax_variables(variables_np):
-    """flax variables of a retrieval net (numpy leaves) -> port state dict."""
+    """flax variables of a model (numpy leaves) -> port state dict."""
     state = OrderedDict()
     for path, value in _leaves(variables_np.get("params", {})):
         if path == ("pool", "p"):
@@ -70,6 +76,11 @@ def from_jax_variables(variables_np):
             state[name + ".bias"] = value
         elif layer == "bn" and leaf in ("scale", "bias"):
             state[name + (".weight" if leaf == "scale" else ".bias")] = value
+        elif leaf == "kernel" and value.ndim == 4:  # ConvTranspose: no scope
+            state[_module_name(path[:-1]) + ".weight"] = np.transpose(
+                value, (2, 3, 0, 1))
+        elif leaf == "bias" and layer not in ("conv", "dense", "bn"):
+            state[_module_name(path[:-1]) + ".bias"] = value
         else:
             raise KeyError("cannot map JAX parameter %s" % "/".join(path))
     for path, value in _leaves(variables_np.get("batch_stats", {})):

@@ -64,6 +64,15 @@ def gather_resize(x, y0, y1, wy, x0, x1, wx):
     return take_cols(x0) * (1.0 - wx) + take_cols(x1) * wx
 
 
+def gather_crop(x, ys, xs):
+    """Rows ``ys`` (N, OH) then columns ``xs`` (N, OW) of each image of x
+    (N, C, H, W): a pure gather, (N, C, OH, OW)."""
+    n, c, _, w = x.shape
+    oh, ow = ys.shape[1], xs.shape[1]
+    rows = torch.gather(x, 2, ys[:, None, :, None].expand(n, c, oh, w))
+    return torch.gather(rows, 3, xs[:, None, None, :].expand(n, c, oh, ow))
+
+
 def resize_bilinear(x, scale):
     """Bilinear resize of an (N, C, H, W) tensor by ``scale``, with exact
     ``F.interpolate(scale_factor=scale, align_corners=False)`` semantics."""

@@ -12,9 +12,23 @@ bucket -> mask -> for each scale an exact per-image bilinear resize
 coordinates) -> masked trunk -> GeM+L2N kernel -> p-power aggregation over
 scales -> L2 -> optional whitening.
 
+A 2-net composition (a translator, then an embedder) takes its own batched
+path (``ComposedExtractor``, JAX ``extract_vectors_composed``): chunks
+grouped by (raw bucket, every scale's padded shape); per chunk uint8
+ingress normalised once with the composition's (the head's) mean/std; per
+scale one gather that does the exact scale resize and the translator's
+replicate pad to its divisor at once, the translator as one batch, an
+unpad gather into the 64-aligned embedder crop, the valid-extent mask (the
+translator writes into the pad), the masked embedder with the GeM+L2N
+kernel, then ``** msp``; the scales are summed on the host in float64,
+followed by ``^(1/msp)``, L2 and Lw. A network that neither batched path
+takes runs the exact per-image path: each image through the host
+transform and the network's own wrappers.
+
 Everything runs synchronously on the calling thread: chunks are copied to the
 device and launched in order on the current stream, and ``finish`` copies
-the descriptors back. Nothing here starts a thread or a process.
+the descriptors back. Nothing here starts a thread or a process. The port
+computes in float32 (``device.check_compute_dtype``).
 """
 import collections
 import math
@@ -22,12 +36,13 @@ import math
 import numpy as np
 import torch
 
+from ..device import check_compute_dtype
 from ..learning.wrappers import (CirMultiscaleAggregation, CirtorchWhiten,
-                                 FakeBatch)
+                                 FakeBatch, ReflectPadMakeDivisible)
 from ..models.trunks import apply_valid_mask
 from ..ops import preprocess
 from ..ops.clahe import aux_to_device, clahe_bucket_aux
-from ..ops.resize import gather_resize, torch_resize_grid
+from ..ops.resize import gather_crop, gather_resize, torch_resize_grid
 from ..ops.whitening import whitenapply_rows
 
 BUCKET_MULTIPLE = 64
@@ -40,7 +55,8 @@ def _round_up(v, m):
 
 def _analyze_wrappers(network):
     """The network's eval wrappers [cirwhiten?] [cirmultiscale?] [fakebatch?]
-    as (scales, whiten), the parameters the batched path computes with."""
+    as (scales, whiten), the parameters the batched paths compute with; None
+    when a wrapper has no batched form."""
     scales = [1]
     whiten = None
     for wrapper in network.wrappers["eval"].wrappers:
@@ -49,9 +65,13 @@ def _analyze_wrappers(network):
         elif isinstance(wrapper, CirMultiscaleAggregation):
             scales = wrapper.scales
         elif not isinstance(wrapper, FakeBatch):
-            raise ValueError("wrapper %r has no batched extraction"
-                             % type(wrapper).__name__)
+            return None
     return scales, whiten
+
+
+def _scaled(side, scale):
+    """torch's floor size of ``side`` at ``scale``."""
+    return side if scale == 1 else int(math.floor(side * scale))
 
 
 def _plain_normalize_chain(transform):
@@ -280,7 +300,12 @@ def network_extractor(network, transform, batch_size=MAX_BATCH):
     chain that does not lower raises; otherwise it takes float32 arrays
     that ``transform`` produced on the host.
     """
-    scales, whiten = _analyze_wrappers(network)
+    analyzed = _analyze_wrappers(network)
+    if analyzed is None:
+        raise ValueError("the eval wrappers of %s have no batched extraction"
+                         % type(network).__name__)
+    check_compute_dtype(network.network_params.runtime.get("compute_dtype"))
+    scales, whiten = analyzed
     model = network.model
     mean_std = _plain_normalize_chain(transform)
     if mean_std is not None and len(mean_std[0]) != 3:
@@ -300,20 +325,284 @@ def network_extractor(network, transform, batch_size=MAX_BATCH):
         device_chain=chain)
 
 
-def extract_vectors_network(network, images, image_size, transform,
-                            bbxs=None, batch_size=MAX_BATCH):
-    """(D, N) descriptors of image files through ``network``'s batched path.
+def _plain_ingress(transform):
+    """(mean, std) when ``transform`` lets 3-channel uint8 pixels travel and
+    be normalised on the device; None for a host transform. A photometric
+    step raises: it runs only as the device chain, which a composition does
+    not take."""
+    mean_std = _plain_normalize_chain(transform)
+    if mean_std is not None and len(mean_std[0]) == 3:
+        return mean_std
+    if _has_photometric_step(transform):
+        raise NotImplementedError(
+            "transform %r has no host path in the port (%s)"
+            % (transform, preprocess.NOT_PORTED))
+    return None
 
-    Images are decoded here (PIL), cropped to their bounding box and shrunk
-    to ``image_size`` on their longer side.
+
+def composed_pack_grids(rh, rw, scale, divisor, ph, pw):
+    """One image's packed rows for a composed chunk: ``(ypack (ph, 4),
+    xpack (pw, 4), (sh, sw))``, per axis ``[idx0, idx1, weight,
+    unpad-shift]`` as float32: the exact scale-resize grid (torch floor
+    sizes) composed with the translator's replicate pad to ``divisor``
+    (floor at top/left), and the shift that moves the translated image back
+    to the origin (JAX ``composed_pack_grids``)."""
+    sh, sw = _scaled(rh, scale), _scaled(rw, scale)
+    top = (_round_up(sh, divisor) - sh) // 2
+    left = (_round_up(sw, divisor) - sw) // 2
+    if scale == 1:
+        gy0, gy1, gwy = np.arange(sh), np.arange(sh), np.zeros(sh)
+        gx0, gx1, gwx = np.arange(sw), np.arange(sw), np.zeros(sw)
+    else:
+        gy0, gy1, gwy = torch_resize_grid(rh, sh, scale)
+        gx0, gx1, gwx = torch_resize_grid(rw, sw, scale)
+    ypack = np.zeros((ph, 4), np.float32)
+    xpack = np.zeros((pw, 4), np.float32)
+    sy = np.clip(np.arange(ph) - top, 0, sh - 1)
+    sx = np.clip(np.arange(pw) - left, 0, sw - 1)
+    ypack[:, 0], ypack[:, 1], ypack[:, 2] = gy0[sy], gy1[sy], gwy[sy]
+    xpack[:, 0], xpack[:, 1], xpack[:, 2] = gx0[sx], gx1[sx], gwx[sx]
+    ypack[:, 3] = np.clip(np.arange(ph) + top, 0, ph - 1)
+    xpack[:, 3] = np.clip(np.arange(pw) + left, 0, pw - 1)
+    return ypack, xpack, (sh, sw)
+
+
+def composed_crop_hws(raw_bucket, pads, scales,
+                      granularity=BUCKET_MULTIPLE):
+    """Per scale, the embedder's crop of a composed chunk: the raw bucket's
+    scaled extent rounded up to ``granularity`` and clipped to the
+    translator's pad. The masked embedder makes any covering crop exact."""
+    out = []
+    for scale, (ph, pw) in zip(scales, pads):
+        sh, sw = (_scaled(side, scale) for side in raw_bucket)
+        out.append((min(ph, _round_up(max(sh, 1), granularity)),
+                    min(pw, _round_up(max(sw, 1), granularity))))
+    return tuple(out)
+
+
+@torch.no_grad()
+def composed_forward(translate, embed, batch, packs, crop_hws, msp,
+                     mean=None, std=None):
+    """One composed chunk: (B, H, W, C) raw bucket -> (S, B, D) per-scale
+    descriptors ** msp.
+
+    batch is uint8 (normalised here with ``mean``/``std``) or float32
+    (normalised on the host); packs[s] is (valid (B, 2), ypack (B, PH, 4),
+    xpack (B, PW, 4)) of scale s on the device; translate maps (B, C, PH,
+    PW) images to images, embed (images, valid) to (B, D) descriptors.
     """
+    x = batch.permute(0, 3, 1, 2)
+    if mean is not None:
+        x = x.to(torch.float32) / 255.0
+        x = (x - mean[None, :, None, None]) / std[None, :, None, None]
+    x = x.contiguous()
+    out = []
+    for (valid, ypack, xpack), (ch, cw) in zip(packs, crop_hws):
+        ys, xs = ypack.to(torch.int64), xpack.to(torch.int64)
+        padded = gather_resize(x, ys[..., 0], ys[..., 1], ypack[..., 2],
+                               xs[..., 0], xs[..., 1], xpack[..., 2])
+        translated = gather_crop(translate(padded), ys[:, :ch, 3],
+                                 xs[:, :cw, 3])
+        vecs = embed(apply_valid_mask(translated, valid), valid)
+        out.append(vecs.to(torch.float32) ** msp)
+    return torch.stack(out)
+
+
+class ComposedExtractor:
+    """Bucketed multi-scale extraction through a 2-net composition of
+    images added one at a time (JAX ``extract_vectors_composed``).
+
+    The translator's pad divisor comes from its eval wrapper
+    (``reflectpad_divisible``), the scales and whitening from the
+    composition's. ``translate`` and ``embed`` are the two models' forward
+    calls. With ``normalize_mean_std`` the arrays are uint8 pixels and the
+    normalisation runs on the device, otherwise they are float32 arrays
+    normalised on the host.
+    """
+
+    def __init__(self, network, normalize_mean_std=None,
+                 bucket_multiple=BUCKET_MULTIPLE, max_batch=MAX_BATCH):
+        if not _composable(network):
+            raise ValueError("%s has no composed batched extraction"
+                             % type(network).__name__)
+        head, tail = (network.networks[name] for name in network.sequence)
+        check_compute_dtype(tail.network_params.runtime.get("compute_dtype"))
+        pad = head.wrappers["eval"].wrappers
+        self.divisor = pad[0].divisible_by if pad else 1
+        self.scales, self.whiten = _analyze_wrappers(network)
+        self.msp = CirMultiscaleAggregation.msp(tail.model, len(self.scales))
+        self.translate = head.model
+        self.embed = tail.model
+        self.device = tail.model.device
+        self.dim = tail.meta["out_channels"]
+        self.bucket_multiple = bucket_multiple
+        self.max_batch = max_batch
+        self.mean = self.std = None
+        self.host_dtype = np.float32
+        if normalize_mean_std is not None:
+            self.mean, self.std = (
+                torch.tensor(v, dtype=torch.float32, device=self.device)
+                for v in normalize_mean_std)
+            self.host_dtype = np.uint8
+        self.buffers = collections.defaultdict(list)  # key -> [(i, arr)]
+        self.results = []  # (indices, (S, B, D) device descriptors ** msp)
+        self.chunks = 0
+
+    def _key(self, arr):
+        """(raw bucket, every scale's translator pad) of an image."""
+        rh, rw = arr.shape[:2]
+        pads = tuple(tuple(_round_up(_scaled(side, s), self.divisor)
+                           for side in (rh, rw)) for s in self.scales)
+        return (_round_up(rh, self.bucket_multiple),
+                _round_up(rw, self.bucket_multiple)), pads
+
+    def add(self, index, arr):
+        arr = np.asarray(arr)
+        if arr.dtype != self.host_dtype:
+            raise ValueError("expected %s pixels, got %s"
+                             % (np.dtype(self.host_dtype).name, arr.dtype))
+        key = self._key(arr)
+        self.buffers[key].append((index, arr))
+        if len(self.buffers[key]) == self.max_batch:
+            self._submit(key)
+
+    def _submit(self, key):
+        items = self.buffers.pop(key)
+        raw_bucket, pads = key
+        bsz = len(items)
+        batch = np.zeros((bsz,) + raw_bucket + (items[0][1].shape[-1],),
+                         self.host_dtype)
+        for bi, (_, arr) in enumerate(items):
+            batch[bi, :arr.shape[0], :arr.shape[1]] = arr
+        packs = []
+        for scale, (ph, pw) in zip(self.scales, pads):
+            valid = np.ones((bsz, 2), np.int32)
+            ypack = np.zeros((bsz, ph, 4), np.float32)
+            xpack = np.zeros((bsz, pw, 4), np.float32)
+            for bi, (_, arr) in enumerate(items):
+                ypack[bi], xpack[bi], valid[bi] = composed_pack_grids(
+                    arr.shape[0], arr.shape[1], scale, self.divisor, ph, pw)
+            packs.append(tuple(torch.from_numpy(a).to(self.device)
+                               for a in (valid, ypack, xpack)))
+        vecs = composed_forward(
+            self.translate, self.embed,
+            torch.from_numpy(batch).to(self.device), packs,
+            composed_crop_hws(raw_bucket, pads, self.scales), self.msp,
+            self.mean, self.std)
+        self.chunks += 1
+        self.results.append(([i for i, _ in items], vecs))
+
+    def finish(self, n):
+        """Run the partial chunks; return the (D, N) descriptors (numpy):
+        the scales summed in float64, ``^(1/msp)``, L2, then Lw on the
+        device."""
+        for key in list(self.buffers.keys()):
+            self._submit(key)
+        if not self.results:
+            raise ValueError("no images were added")
+        acc = np.zeros((n, self.dim), np.float64)
+        for indices, vecs in self.results:
+            host = vecs.to(torch.float64).cpu().numpy()
+            for bi, i in enumerate(indices):
+                acc[i] += host[:, bi].sum(axis=0)
+        self.results = []
+        acc = (acc / len(self.scales)) ** (1.0 / self.msp)
+        acc = acc / np.linalg.norm(acc, axis=1, keepdims=True)
+        out = acc.T.astype(np.float32)
+        if self.whiten is not None:
+            out = self.whiten.postprocess(
+                torch.from_numpy(out).to(self.device), None, None)
+            out = out.cpu().numpy()
+        return out
+
+
+def _composable(network):
+    """Whether a network takes the composed batched path: two networks, a
+    translator with no eval wrapper or one pad to a divisor, an embedder
+    with a global pool, and wrappers the batched path computes (JAX
+    ``_composable_sequential``)."""
+    if not hasattr(network, "sequence") or len(network.sequence) != 2 \
+            or _analyze_wrappers(network) is None:
+        return False
+    head, tail = (network.networks[name] for name in network.sequence)
+    if hasattr(head, "sequence"):
+        return False
+    pad = head.wrappers["eval"].wrappers
+    if pad and not (len(pad) == 1
+                    and isinstance(pad[0], ReflectPadMakeDivisible)):
+        return False
+    meta = tail.model.meta
+    return meta.get("pooling") in ("gem", "mac", "spoc") \
+        and not meta["regional"]
+
+
+def _decoded(images, image_size, bbxs, transform, uint8):
+    """The images as arrays: uint8 pixels, or the host transform's output.
+    ``images`` is a list of paths or of decoded uint8 HWC arrays (those
+    need ``uint8``)."""
     from ..data.images import ImagesFromList
 
-    network.eval()
-    extractor = network_extractor(network, transform, batch_size)
-    uint8 = extractor.host_dtype == np.uint8
+    if len(images) and isinstance(images[0], np.ndarray):
+        if not uint8:
+            raise ValueError("array inputs need a plain pil2np | totensor | "
+                             "normalize transform")
+        return iter(images)
     dataset = ImagesFromList(images, imsize=image_size, bbxs=bbxs,
                              transform=None if uint8 else transform)
-    for i in range(len(dataset)):
-        extractor.add(i, dataset.uint8(i) if uint8 else dataset[i])
+    return (dataset.uint8(i) if uint8 else dataset[i]
+            for i in range(len(dataset)))
+
+
+def extract_vectors_composed(network, images, image_size, transform,
+                             bbxs=None, max_batch=MAX_BATCH):
+    """(D, N) descriptors of images (paths, or uint8 HWC arrays) through a
+    2-net composition's batched path."""
+    mean_std = _plain_ingress(transform)
+    extractor = ComposedExtractor(network, normalize_mean_std=mean_std,
+                                  max_batch=max_batch)
+    for i, arr in enumerate(_decoded(images, image_size, bbxs, transform,
+                                     mean_std is not None)):
+        extractor.add(i, arr)
+    return extractor.finish(len(images))
+
+
+def extract_vectors_per_image(network, images, image_size, transform,
+                              bbxs=None):
+    """(D, N) descriptors by the exact per-image path (JAX
+    ``extract.py:980-988``): each image through the host transform, then
+    ``network(image)`` with the network's own wrappers."""
+    tail = network.networks[network.sequence[-1]] \
+        if hasattr(network, "sequence") else network
+    check_compute_dtype(tail.network_params.runtime.get("compute_dtype"))
+    out = np.zeros((network.meta["out_channels"], len(images)), np.float32)
+    for i, arr in enumerate(_decoded(images, image_size, bbxs, transform,
+                                     False)):
+        out[:, i] = network(arr).reshape(-1).cpu().numpy()
+    return out
+
+
+def extract_vectors_network(network, images, image_size, transform,
+                            bbxs=None, batch_size=MAX_BATCH):
+    """(D, N) descriptors of image files through ``network``.
+
+    A 2-net composition takes the composed batched path, a retrieval net
+    with the whiten/multiscale wrappers the single-net batched path, and any
+    other network the exact per-image path. Images are decoded here (PIL),
+    cropped to their bounding box and shrunk to ``image_size`` on their
+    longer side.
+    """
+    network.eval()
+    if _composable(network):
+        return extract_vectors_composed(network, images, image_size,
+                                        transform, bbxs=bbxs,
+                                        max_batch=batch_size)
+    if hasattr(network, "sequence") or _analyze_wrappers(network) is None \
+            or "pooling" not in network.model.meta:
+        return extract_vectors_per_image(network, images, image_size,
+                                         transform, bbxs=bbxs)
+    extractor = network_extractor(network, transform, batch_size)
+    uint8 = extractor.host_dtype == np.uint8
+    for i, arr in enumerate(_decoded(images, image_size, bbxs, transform,
+                                     uint8)):
+        extractor.add(i, arr)
     return extractor.finish(len(images))

@@ -3,7 +3,9 @@
 The card's machine has torch, numpy and scipy but no JAX and no PIL, cv2,
 yaml or msgpack. A subprocess with those modules blocked imports every module
 of ``mdir_tpu_torch`` and ``chip_smoke`` itself, runs the lab CLAHE chain,
-and trains (and resumes) a small net on in-memory images as the smoke does.
+trains (and resumes) a small net on in-memory images, and runs a U-Net
+composition's extraction and the eval entry's URL lookup, as the smoke
+does.
 """
 import os
 import shutil
@@ -34,7 +36,9 @@ trained = {"mdir_tpu_torch.stages.train", "mdir_tpu_torch.learning.learning",
            "mdir_tpu_torch.optim.criteria", "mdir_tpu_torch.optim.optimizers",
            "mdir_tpu_torch.optim.schedulers", "mdir_tpu_torch.data.datasets",
            "mdir_tpu_torch.data.loaders", "mdir_tpu_torch.tools.stats",
-           "mdir_tpu_torch.models.weight_init"}
+           "mdir_tpu_torch.models.weight_init", "mdir_tpu_torch.models.unet",
+           "mdir_tpu_torch.models.autoencoder", "mdir_tpu_torch.eval",
+           "mdir_tpu_torch.config.overlay"}
 assert trained <= set(sys.modules), trained - set(sys.modules)
 loaded = sorted(name for name in sys.modules
                 if name.split(".")[0] in %r and sys.modules[name] is not None)
@@ -199,3 +203,61 @@ def test_train_stage_runs_without_jax_cv2_pil():
     result = _run(["-c", RUN_TRAIN], ROOT)
     assert result.returncode == 0, result.stderr[-3000:]
     assert result.stdout.split("\n")[-2] == "trained 2"
+
+
+RUN_COMPOSITION = """
+import sys
+for name in %r:
+    sys.modules[name] = None
+import hashlib, os, tempfile
+import numpy as np
+from mdir_tpu_torch import eval as entry
+from mdir_tpu_torch.config.overlay import load_scenario
+from mdir_tpu_torch.learning.network import SequentialNetwork
+from mdir_tpu_torch.parallel.extract import ComposedExtractor
+
+mean_std = [[0.5] * 3, [0.5] * 3]
+network = SequentialNetwork.initialize({
+    "sequence": "translate,embed",
+    "translate": {"type": "SingleNetwork", "initialize": None,
+                  "model": {"architecture": "p2p_unet", "in_channels": 3,
+                            "out_channels": 3, "nested_levels": 1},
+                  "runtime": {"wrappers": "reflectpad_divisible:8",
+                              "data": {"mean_std": mean_std}}},
+    "embed": {"type": "CirNetwork", "initialize": None,
+              "model": {"architecture": "cirnet",
+                        "cir_architecture": "alexnet",
+                        "local_whitening": False, "pooling": "gem",
+                        "regional": False, "whitening": False,
+                        "pretrained": False},
+              "runtime": {"wrappers": {"train": None, "eval": {
+                  "0_cirmultiscale": {"scales": True}}}}}},
+    device="cpu").eval()
+extractor = ComposedExtractor(network, mean_std)
+rng = np.random.RandomState(0)
+for i, shape in enumerate([(70, 66), (64, 90)]):
+    extractor.add(i, rng.randint(0, 256, shape + (3,)).astype(np.uint8))
+vecs = extractor.finish(2)
+assert vecs.shape == (256, 2) and np.isfinite(vecs).all(), vecs.shape
+
+root = tempfile.mkdtemp()
+name = "lw-%%s.pkl" %% hashlib.sha256(b"w").hexdigest()[:8]
+with open(os.path.join(root, name), "wb") as handle:
+    handle.write(b"w")
+scenario = entry.resolve_urls({"network": {"path": None, "runtime": {
+    "wrappers": {"eval": {"0_cirwhiten": {
+        "whitening": "http://artifacts.invalid/" + name}}}}}}, root)
+assert scenario["network"]["runtime"]["wrappers"]["eval"]["0_cirwhiten"][
+    "whitening"] == os.path.join(root, name)
+assert load_scenario([]) == {}
+print("composed", extractor.chunks)
+""" % (BLOCKED,)
+
+
+def test_composition_runs_without_jax_pil_yaml():
+    """A U-Net composition's batched extraction on in-memory images and the
+    eval entry's artifact lookup, with JAX, the JAX package, cv2, PIL, yaml
+    and msgpack blocked."""
+    result = _run(["-c", RUN_COMPOSITION], ROOT)
+    assert result.returncode == 0, result.stderr[-3000:]
+    assert result.stdout.split("\n")[-2] == "composed 2"

@@ -10,9 +10,14 @@ Phases, one line each with its wall time:
   3. kernel: the GeM+L2N kernel against its plain PyTorch version on the
      card, at the extraction shapes, ragged valid extents included, at
      p = 1, 2.5, 3 and 4.7 (the kernel multiplies out p = 1 and 3 and
-     takes exp2/log2 for any other); and the GeM head under autograd on
-     the card (its plain version: the kernel is eval-only) against the
-     CPU's gradients;
+     takes exp2/log2 for any other), and its bfloat16-input instantiation
+     against the float32 pool of the same cells at bf16 maps whose widths
+     load 8, 4, 2 and 1 cells; and the GeM head under autograd on the card
+     (its plain version: the kernel is eval-only) against the CPU's
+     gradients;
+  Phases 4 to 10 pin ``compute_dtype: float32`` (``auto`` would run
+  bfloat16 on the card), so their gates and numbers stay comparable with
+  the earlier records; phase 11 runs bfloat16.
   4. main path: the validate path of a ResNet101-GeM (2048-d, random weights
      from a seed, p = 3, Lw whitening, scales 1, 2^-1/2, 1/2, image size
      1024) on 32 database and 8 query uint8 images made from a seed:
@@ -66,7 +71,12 @@ Phases, one line each with its wall time:
      >= 0.9999); the
      epoch-2 checkpoint reloading bit for bit and the resumed epoch's loss
      finite; every loss finite and positive. Each kernel must launch on
-     the path (gem_l2n in mining only: the step pools under autograd);
+     the path (gem_l2n in mining only: the step pools under autograd).
+     Then two steps (adam) from the epoch-2 weights on the dataset's two
+     batches under ``compute_dtype: auto`` (a bf16 trunk, its guard on the
+     first step; a rejection must return the float32 step) beside the same
+     steps in float32: the guard's loss gap and gradient cosine, s/step,
+     peak memory;
  10. the composition path, the paper's "U-Net jointly N/D" eval
      (examples/iccv19/eval_composition.yml): a P2pUNet night->day
      translator at full width (nested_levels 7, 64 to 512 channels,
@@ -80,10 +90,18 @@ Phases, one line each with its wall time:
      in one chunk, one padded at every scale (rtol 1e-4, atol 1e-5); one
      U-Net forward at 256 x 256 must match the CPU's within 1e-4 relative.
      It prints images/s, peak memory and the translator's share of the
-     pass (CUDA events), and holds gem_l2n at every input the path gave it.
-Then one JSON line of kernels (with their launches on the training and
-composition paths, mining and train step apart), the nvidia-smi line, and
-the last line
+     pass (CUDA events), and holds gem_l2n at every input the path gave it;
+ 11. the three eval paths of phases 4, 7 and 10 on the same images, first
+     with ``compute_dtype: bfloat16`` (unguarded: images/s, peak memory,
+     each chunk's least row cosine and the top-10 ranks against the path's
+     float32 run; gem_l2n's bf16 instantiation must launch once per chunk x
+     scale), then with ``auto``: the guard must run once, on the first
+     chunk, and a rejection must give descriptors within 1e-4 of float32.
+     The bf16 kernel is held within 1e-5 relative of its plain version at
+     every input the bf16 runs gave it, and timed there against its bound.
+Then one JSON line of kernels (gem_l2n_bf16 beside gem_l2n; their launches
+on the training and composition paths, mining and train step apart), the
+nvidia-smi line, and the last line
 {"ok": true, "device": {...}}. Any failure raises (non-zero exit, no last
 line). Without a card, or without the port beside it, it fails at once.
 """
@@ -107,6 +125,14 @@ SEED = 0
 IMAGE_SIZE = 1024
 SCALES = [1, 2 ** -0.5, 0.5]
 KERNEL_SHAPES = [(16, 2048, 32, 24), (16, 2048, 23, 17), (3, 2048, 7, 9)]
+# the bf16-input kernel: the ResNet and VGG16 maps, widths that load 8, 4,
+# 2 and 1 cells, the small-batch launch
+BF16_KERNEL_SHAPES = [(16, 2048, 32, 24), (16, 2048, 32, 20),
+                      (16, 2048, 18, 22), (16, 2048, 23, 17),
+                      (16, 512, 64, 48), (8, 512, 48, 64), (3, 2048, 7, 9)]
+# phases 4-10 pin float32, so their gates and numbers stay those of the
+# earlier records; phase 11 runs bfloat16 and auto
+FLOAT32_RUNTIME = {"compute_dtype": "float32"}
 P_VALUES = (1.0, 2.5, 3.0, 4.7)  # GeM exponents the kernel is held at
 PATH_P, OTHER_P = 3.0, 2.5  # the path's p (timed) and a non-integer p
 # the kernels' "redesigned" tag in the kernels line: where the records
@@ -228,15 +254,16 @@ def spin_cycles_per_s():
     return 1e10 / start.elapsed_time(end)
 
 
-def gem_bound_ms(shape, valid):
+def gem_bound_ms(shape, valid, itemsize=4):
     """Least time of masked GeM+L2N on these inputs, and what bounds it:
-    every valid cell read once and N*C floats written (plus extents and p),
-    against ~3 float operations per valid cell (clamp, pow, add)."""
+    every valid cell read once (``itemsize`` bytes) and N*C floats written
+    (plus extents and p), against ~3 float operations per valid cell
+    (clamp, pow, add)."""
     n, c = shape[:2]
     h, w = shape[2:]
     cells = int(sum(min(max(int(vh), 0), h) * min(max(int(vw), 0), w)
                     for vh, vw in valid.tolist()))
-    nbytes = 4 * (cells * c + n * c + 2 * n + 1)
+    nbytes = itemsize * cells * c + 4 * (n * c + 2 * n + 1)
     ops = 3 * cells * c
     byte_s, op_s = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
     return 1e3 * max(byte_s, op_s), "bytes" if byte_s >= op_s else "operations"
@@ -252,53 +279,58 @@ def ragged_valid(gen, n, h, w, device):
 
 def kernel_against_plain(pooling_kernel, gem_l2n_plain, x, valid):
     """The largest |kernel - plain| over P_VALUES; fails outside the
-    tolerance."""
+    tolerance. The plain version of a bf16 input is the float32 pool of its
+    exactly widened cells."""
     err = 0.0
     for value in P_VALUES:
         p = torch.tensor([value], device=x.device)
         with torch.no_grad():
             out = pooling_kernel.gem_l2n(x, valid, p)
-            ref = gem_l2n_plain(x, valid, p)
+            ref = gem_l2n_plain(x.float(), valid, p)
         torch.cuda.synchronize()
         torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL)
         err = max(err, float((out - ref).abs().max()))
     return err
 
 
-def recording_pool(launch, sink):
+def recording_pool(launch, sink, dtypes=None):
     """``launch`` (the pool's wrapper) that also records each input's shape
-    and valid extents in ``sink``."""
+    and valid extents in ``sink``, and its dtype in ``dtypes``."""
     def fn(x, valid_hw, p, eps=1e-6):
         sink.append((tuple(x.shape), valid_hw.clone()))
+        if dtypes is not None:
+            dtypes.append(x.dtype)
         return launch(x, valid_hw, p, eps=eps)
     return fn
 
 
-def gem_path_phase(tag, pooling_kernel, gem_l2n_plain, inputs, gen, device):
+def gem_path_phase(tag, pooling_kernel, gem_l2n_plain, inputs, gen, device,
+                   dtype=torch.float32):
     """The kernel at every distinct (shape, valid extents) input a main path
-    gave it, on random values, at P_VALUES against plain; then its time at
-    the path's largest input (at PATH_P and OTHER_P, against plain and the
-    bound) and at its largest input of fewer than FULL_BATCH images, which
-    takes the small-batch launch."""
+    gave it, on random values of ``dtype``, at P_VALUES against plain; then
+    its time at the path's largest input (at PATH_P and OTHER_P, against
+    plain and the bound) and at its largest input of fewer than FULL_BATCH
+    images, which takes the small-batch launch."""
     distinct = {}
     for shape, valid in inputs:
         distinct.setdefault((shape, tuple(map(tuple, valid.tolist()))),
                             valid)
     err = 0.0
     for (shape, _), valid in distinct.items():
-        x = torch.rand(shape, generator=gen).to(device)
+        x = torch.rand(shape, generator=gen).to(device, dtype)
         err = max(err, kernel_against_plain(pooling_kernel, gem_l2n_plain,
                                             x, valid))
     p, other_p = (torch.tensor([v], device=device)
                   for v in (PATH_P, OTHER_P))
 
     def timed(shape, valid, p_values):
-        x = torch.rand(shape, generator=gen).to(device)
+        x = torch.rand(shape, generator=gen).to(device, dtype)
         with torch.no_grad():
             times = [cuda_ms(lambda: pooling_kernel.gem_l2n(x, valid, q))
                      for q in p_values]
-            plain_ms = cuda_ms(lambda: gem_l2n_plain(x, valid, p))
-        bound_ms, bound_by = gem_bound_ms(shape, valid.cpu())
+            plain_ms = cuda_ms(lambda: gem_l2n_plain(x.float(), valid, p))
+        bound_ms, bound_by = gem_bound_ms(shape, valid.cpu(),
+                                          x.element_size())
         return {"shape": list(shape), "ms": times[0], "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "bound_share": bound_ms / times[0]}, times[1:]
@@ -556,7 +588,7 @@ def clahe_path_phase(device, db, queries, gnd, rng):
     os.replace(whiten_path + ".tmp", whiten_path)
     runtime = {"wrappers": {"train": None, "eval": {
         "0_cirwhiten": {"whitening": whiten_path, "dimensions": None},
-        "1_cirmultiscale": {"scales": SCALES}}}}
+        "1_cirmultiscale": {"scales": SCALES}}}, **FLOAT32_RUNTIME}
     model = initialize_model(CLAHE_MODEL, device=device, seed=SEED)
     network = CirNetwork(model, CirNetwork.NetworkParams(
         model=dict(CLAHE_MODEL), runtime=runtime), frozen=True)
@@ -679,7 +711,9 @@ def clahe_path_phase(device, db, queries, gnd, rng):
         % cross_err)
     return {"launches": launches, "inputs": chain_in, "gem_inputs": gem_in,
             "grid": chain_from_transform(transform).clahe_params[1],
-            "whiten_path": whiten_path}
+            "whiten_path": whiten_path, "network": network,
+            "transform": transform, "out": out, "ranks": ranks,
+            "images_per_s": n_images / seconds, "peak": peak}
 
 
 def clahe_timing_phase(clahe, lab_trilinear, inputs, grid):
@@ -756,7 +790,8 @@ def train_scenario(directory, db_pkl, epochs):
             "initialize": {"weights": "default", "seed": SEED},
             "runtime": {"wrappers": {"train": "cirfaketuplebatch",
                                      "eval": ""},
-                        "data": {"transforms": CLAHE_TRANSFORM}}},
+                        "data": {"transforms": CLAHE_TRANSFORM},
+                        **FLOAT32_RUNTIME}},
         "learning": {
             "type": "TrainValLearning",
             "checkpoints": {"directory": directory, "store_every": 0,
@@ -1005,9 +1040,11 @@ def train_phase(device, clahe, lab_trilinear, pooling_kernel):
 
     # 3. one step on the card against the CPU at a reduced size
     card_cpu_step(device, dataset, saved[TRAIN_EPOCHS - 1])
+    # 6. two steps under auto (bf16 trunk, the guard) beside float32
+    bf16 = bf16_train_steps(device, dataset, saved[TRAIN_EPOCHS - 1])
     shutil.rmtree(root, ignore_errors=True)
     TRAIN_IMAGES.clear()
-    return {"launches": launches, "gem_err": gem_err}
+    return {"launches": launches, "gem_err": gem_err, "bf16": bf16}
 
 
 def conv_flops(model, x):
@@ -1049,7 +1086,7 @@ def composition_network(device, whiten_path):
             "wrappers": {"train": None, "eval": {
                 "0_cirwhiten": {"whitening": whiten_path,
                                 "dimensions": None},
-                "1_cirmultiscale": {"scales": SCALES}}}}))
+                "1_cirmultiscale": {"scales": SCALES}}}, **FLOAT32_RUNTIME}))
     return SequentialNetwork({"translate": translator, "embed": embedder},
                              ["translate", "embed"], frozen=True)
 
@@ -1184,7 +1221,9 @@ def composition_phase(device, db, queries, gnd, whiten_path, pooling_kernel,
         "TF32 off)" % (flops / UNET_CHECK_SIDE ** 2 * 1024 * 768 / 1e9,
                        work / 1e12, sum(padded) / 1e6,
                        work / translate_ms / 1e9))
-    return {"launches": launches, "gem_inputs": gem_in}
+    return {"launches": launches, "gem_inputs": gem_in, "network": network,
+            "mean_std": mean_std, "out": out, "ranks": ranks,
+            "images_per_s": n_images / seconds, "peak": peak}
 
 
 def gem_train_inputs(pooling_kernel, gem_l2n_plain, inputs, device):
@@ -1245,6 +1284,177 @@ def card_cpu_step(device, dataset, state):
           ("card step gradient vs CPU", worst, cosines[worst]))
 
 
+def with_compute_dtype(network, mode):
+    """``network`` over the same models with runtime ``compute_dtype``
+    ``mode``: a composition's goes to its embedder, as yaml routes it."""
+    from mdir_tpu_torch.learning.network import SequentialNetwork
+
+    if isinstance(network, SequentialNetwork):
+        members = dict(network.networks)
+        tail = network.sequence[-1]
+        members[tail] = with_compute_dtype(members[tail], mode)
+        return SequentialNetwork(members, list(network.sequence),
+                                 frozen=True)
+    spec = network.network_params
+    return type(network)(network.model, type(spec)(
+        model=spec.model, runtime=dict(spec.runtime, compute_dtype=mode)),
+        frozen=True)
+
+
+class ChunkRows(list):
+    """An extractor's ``results`` that also keeps each chunk's indices."""
+
+    def __init__(self, sink):
+        super().__init__()
+        self.sink = sink
+
+    def append(self, item):
+        self.sink.append(list(item[0]))
+        super().append(item)
+
+
+def bf16_path_phase(tag, make_extractor, image_sets, f32, pooling_kernel,
+                    device):
+    """Phase 11 on one eval path: with ``compute_dtype: bfloat16`` (a warm-up
+    that records the pool's inputs, then a timed run: images/s, peak
+    memory, each chunk's least row cosine and the top-10 ranks against the
+    float32 run ``f32`` of the path's phase), then with ``auto``: the guard
+    must run once, on the first chunk, and a rejection must ship float32
+    descriptors."""
+    from mdir_tpu_torch.ops import dtypes as dtype_policy
+    from mdir_tpu_torch.ops.ranking import rank_database
+
+    def run(mode):
+        outs, chunks, reports = [], [], []
+        for k, images in enumerate(image_sets):
+            extractor = make_extractor(mode)
+            rows = []
+            extractor.results = ChunkRows(rows)
+            for i, img in enumerate(images):
+                extractor.add(i, img)
+            outs.append(extractor.finish(len(images)))
+            chunks += [(k, r) for r in rows]
+            reports.append(extractor.guard_report)
+        ranks = rank_database(*(torch.from_numpy(
+            np.ascontiguousarray(v)).to(device) for v in outs)).cpu().numpy()
+        return outs, chunks, reports, ranks
+
+    gem_in, dtypes = [], []
+    with mock.patch.object(pooling_kernel, "gem_l2n", recording_pool(
+            pooling_kernel.gem_l2n, gem_in, dtypes)):
+        run("bfloat16")  # warm-up: bf16 cuDNN plans, allocator
+    check(set(dtypes) == {torch.bfloat16}, ("bf16 pool inputs", set(dtypes)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pooling_kernel.reset_launches()
+    t = time.perf_counter()
+    outs, chunks, reports, ranks = run("bfloat16")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launches = pooling_kernel.launches
+    peak = torch.cuda.max_memory_allocated()
+    n_images = sum(len(images) for images in image_sets)
+    check(all(r is None for r in reports), "explicit bfloat16 is unguarded")
+    for v in outs:
+        check(v.dtype == np.float32 and np.isfinite(v).all(),
+              "finite float32 descriptors")
+        norms = np.linalg.norm(v, axis=0)
+        check(np.abs(norms - 1).max() < 1e-4, ("unit norms", norms))
+    check(launches == len(chunks) * len(SCALES) > 0,
+          ("bf16 gem_l2n launches == chunks x scales", launches, chunks))
+    cosines = [float(dtype_policy.row_cosines(
+        outs[k][:, idx].T, f32["out"][k][:, idx].T).min())
+        for k, idx in chunks]
+    agree = float((ranks[:10] == f32["ranks"][:10]).mean())
+    say("bf16", "%s, bfloat16: %d images in %d chunks, %.2f s, %.1f "
+        "images/s (float32 %.1f), peak %.2f GB (float32 %.2f); least row "
+        "cosine per chunk against float32 %s; top-10 ranks equal to "
+        "float32's at %.1f%% of places; gem_l2n launches %d"
+        % (tag, n_images, len(chunks), seconds, n_images / seconds,
+           f32["images_per_s"], peak / 1e9, f32["peak"] / 1e9,
+           ["%.6f" % c for c in cosines], 100 * agree, launches))
+
+    outs_auto, _, reports, _ = run("auto")
+    guard = reports[0]
+    check(guard is not None and all(r is None for r in reports[1:]),
+          ("auto: the guard runs once, on the first chunk", reports))
+    err = max(float(np.abs(a - b).max()) for a, b in zip(outs_auto,
+                                                         f32["out"]))
+    if not guard["ok"]:
+        check(err <= DESC_ATOL, ("guard rejected: float32 shipped", err))
+    say("bf16", "%s, auto: the guard on the first chunk %s (least row "
+        "cosine %.6f, bar %g); max |desc - float32| %.2e"
+        % (tag, "accepted bfloat16" if guard["ok"]
+           else "rejected it: float32 from there on", guard["min_cosine"],
+           dtype_policy.GUARD_MIN_COSINE, err))
+    return {"gem_inputs": gem_in, "launches": launches,
+            "images_per_s": n_images / seconds, "peak": peak,
+            "min_cosine": min(cosines), "top10_agree": agree,
+            "guard": guard}
+
+
+def bf16_train_steps(device, dataset, state):
+    """Phase 9's bf16 steps: from the epoch-2 weights, two steps (adam) on
+    the dataset's two batches with ``compute_dtype: auto`` (a bf16 trunk,
+    the guard on the first step) beside the same two steps in float32."""
+    from mdir_tpu_torch.learning.network import initialize_network
+    from mdir_tpu_torch.learning.train_step import TrainStep
+    from mdir_tpu_torch.ops import dtypes as dtype_policy
+    from mdir_tpu_torch.optim.criteria import initialize_criterion
+
+    batches = []
+    for b in range(2):
+        items = [dataset[i] for i in range(b * TRAIN_BATCH,
+                                           (b + 1) * TRAIN_BATCH)]
+        batches.append(([tpl for tpl, _ in items], [t for _, t in items]))
+    runs = {}
+    for mode in ("float32", "auto"):
+        net = initialize_network(None, device, state,
+                                 {"compute_dtype": mode}).train()
+        step = TrainStep(net, initialize_criterion(
+            {"loss": "contrastive", "margin": 0.7, "eps": 1e-6}),
+            device_chain=dataset.device_chain)
+        optimizer = torch.optim.Adam(net.model.parameters(), lr=1e-6)
+        times, peaks, losses = [], [], []
+        for images, targets in batches:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            optimizer.zero_grad()
+            loss, _ = step.gradients(images, targets)
+            optimizer.step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            peaks.append(torch.cuda.max_memory_allocated())
+            losses.append(float(loss))
+        runs[mode] = (step, times, peaks, losses)
+        check(all(np.isfinite(x) and x > 0 for x in losses),
+              ("finite positive losses", mode, losses))
+        del net, step, optimizer
+    step, times, peaks, losses = runs["auto"]
+    _, f32_times, f32_peaks, f32_losses = runs["float32"]
+    check(len(step.guard_reports) == 1 and step.guard_reports[0]["step"] == 1,
+          ("the train guard runs on the first step", step.guard_reports))
+    guard = step.guard_reports[0]
+    if not guard["ok"]:
+        check(abs(losses[0] - f32_losses[0]) <= LOSS_RTOL * f32_losses[0],
+              ("train guard rejected: the float32 step", losses, f32_losses))
+    say("train", "auto: the guard on step 1 %s (loss gap %.2e, gradient "
+        "cosine %.6f, bars %g and %g); steps %.3f s (guarded) and %.3f s, "
+        "peak %.2f and %.2f GB; float32 %.3f and %.3f s, peak %.2f and %.2f "
+        "GB; losses %s, float32 %s"
+        % ("accepted bfloat16" if guard["ok"] else "rejected it",
+           guard["loss_gap"], guard["grad_cosine"],
+           dtype_policy.TRAIN_GUARD_LOSS_RTOL,
+           dtype_policy.TRAIN_GUARD_MIN_COSINE, times[0], times[1],
+           peaks[0] / 1e9, peaks[1] / 1e9, f32_times[0], f32_times[1],
+           f32_peaks[0] / 1e9, f32_peaks[1] / 1e9,
+           ["%.6f" % x for x in losses], ["%.6f" % x for x in f32_losses]))
+    return {"guard": guard, "s_per_step": times[1],
+            "f32_s_per_step": f32_times[1], "peak": peaks[1],
+            "f32_peak": f32_peaks[1]}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; it runs on a card only")
@@ -1290,6 +1500,14 @@ def main():
         max_err = max(max_err, err)
         say("kernel", "gem_l2n %s ragged, p in %s: max |kernel - plain| "
             "%.2e" % (shape, P_VALUES, err))
+    bf16_err = 0.0
+    for shape in BF16_KERNEL_SHAPES:
+        x = torch.rand(shape, generator=gen).to(device, torch.bfloat16)
+        valid = ragged_valid(gen, shape[0], shape[2], shape[3], device)
+        bf16_err = max(bf16_err, kernel_against_plain(
+            pooling_kernel, gem_l2n_plain, x, valid))
+    say("kernel", "gem_l2n on bfloat16 maps %s ragged, p in %s: max |kernel "
+        "- plain| %.2e" % (BF16_KERNEL_SHAPES, P_VALUES, bf16_err))
     head_gradients_phase(device, gen)
 
     # 4. the main path
@@ -1308,7 +1526,8 @@ def main():
         model=dict(MODEL),
         runtime={"wrappers": {"train": None, "eval": {
             "0_cirwhiten": {"whitening": whiten_path, "dimensions": None},
-            "1_cirmultiscale": {"scales": SCALES}}}}), frozen=True)
+            "1_cirmultiscale": {"scales": SCALES}}}, **FLOAT32_RUNTIME}),
+        frozen=True)
     transform = initialize_transforms("pil2np | totensor | normalize",
                                       (model.meta["mean"], model.meta["std"]))
 
@@ -1401,6 +1620,39 @@ def main():
                                  gem_l2n_plain)
     unet_pool = gem_path_phase("U-Net VGG16", pooling_kernel, gem_l2n_plain,
                                composed["gem_inputs"], gen, device)
+
+    # 11. the three eval paths in bfloat16 and under auto, and the bf16
+    # kernel at every input they gave it
+    from mdir_tpu_torch.parallel.extract import ComposedExtractor
+
+    image_sets = (db, queries)
+    bf16 = {
+        "ResNet101": bf16_path_phase(
+            "ResNet101-GeM", lambda mode: network_extractor(
+                with_compute_dtype(network, mode), transform), image_sets,
+            {"out": (vecs, qvecs), "ranks": ranks,
+             "images_per_s": n_images / seconds, "peak": peak},
+            pooling_kernel, device),
+        "VGG16 CLAHE": bf16_path_phase(
+            "VGG16-GeM lab CLAHE", lambda mode: network_extractor(
+                with_compute_dtype(path["network"], mode),
+                path["transform"]), image_sets, path, pooling_kernel,
+            device)}
+    composition_nets = {}
+
+    def composed_extractor(mode):
+        if mode not in composition_nets:  # one embedder per mode: its guard
+            composition_nets[mode] = with_compute_dtype(composed["network"],
+                                                        mode)
+        return ComposedExtractor(composition_nets[mode], composed["mean_std"])
+
+    bf16["U-Net VGG16"] = bf16_path_phase(
+        "U-Net jointly N/D", composed_extractor, image_sets, composed,
+        pooling_kernel, device)
+    bf16_pools = {tag: gem_path_phase(tag + " bf16", pooling_kernel,
+                                      gem_l2n_plain, run["gem_inputs"], gen,
+                                      device, torch.bfloat16)
+                  for tag, run in bf16.items()}
     sources = {"lab_n": ("mdir_tpu_torch/csrc/lab_n.cu",
                          "mdir_tpu/ops/lab_trilinear.py:493",
                          ["mdir_tpu/ops/lab_trilinear.py:359"],
@@ -1441,6 +1693,27 @@ def main():
         entry.setdefault("composition_path_launches", 0)
         if entry["name"] in REDESIGNED:
             entry["redesigned"] = REDESIGNED[entry["name"]]
+    # the bf16-input instantiation of the same source; its launches are
+    # the bf16 ResNet path's (the train step pools under autograd)
+    resnet_bf16 = bf16_pools["ResNet101"]
+    kernels.insert(1, {
+        "name": "gem_l2n_bf16", "route": "cuda",
+        "source": "mdir_tpu_torch/csrc/gem_l2n.cu",
+        "replaces": "mdir_tpu/ops/pooling_pallas.py:59",
+        "launches": bf16["ResNet101"]["launches"],
+        "max_abs_err": max([bf16_err] + [run["max_abs_err"]
+                                         for run in bf16_pools.values()]),
+        **resnet_bf16["timed"], "library_ms": None,
+        "small_batch": resnet_bf16["small_batch"],
+        "clahe_path_launches": bf16["VGG16 CLAHE"]["launches"],
+        "clahe_path": dict(bf16_pools["VGG16 CLAHE"]["timed"],
+                           small_batch=bf16_pools["VGG16 CLAHE"][
+                               "small_batch"]),
+        "composition_path_launches": bf16["U-Net VGG16"]["launches"],
+        "composition_path": dict(bf16_pools["U-Net VGG16"]["timed"],
+                                 small_batch=bf16_pools["U-Net VGG16"][
+                                     "small_batch"]),
+        "train_path_launches": {"mining": 0, "train_step": 0}})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-// Masked GeM pooling + L2 normalisation of NCHW float32 features, for sm_90a.
+// Masked GeM pooling + L2 normalisation of NCHW float32 or bfloat16
+// features, for sm_90a.
 //
 // Replaces the Pallas TPU kernel mdir_tpu/ops/pooling_pallas.py::_gem_kernel
 // (launched by gem_l2n_pallas). It computes the same function, not the TPU's
@@ -45,8 +46,20 @@
 // The TPU kernel carried its sum across a sequential grid in scratch memory;
 // blocks here run in no order, and the cluster is what ties an image's
 // blocks together. Eval only: the TPU kernel has no gradient either.
+//
+// bfloat16 input (gem_l2n_bf16): the bf16 extraction program feeds the pool
+// its trunk's bf16 map, so the kernel reads half the bytes. The walk is the
+// same; a vector is 8 cells (16 bytes) where the float path's is 4, or 4, 2
+// or 1 cells where the row width or the tensor's alignment allows no wider
+// load (a ResNet map at a non-unit scale is often only even in width). Each
+// cell widens to float32 exactly (its bits shifted up), and max(x, eps)^p,
+// the sums, the root and the L2N all run in float32, and the output is
+// float32 (N, C). The TPU kernel keeps its sum and output in bf16; float32
+// accumulation is more exact than that, and the reference's bf16 guard
+// (cosine >= 0.997 against float32) bounds what either may drift.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace cg = cooperative_groups;
@@ -73,25 +86,51 @@ static __device__ __forceinline__ float pow_cell(float x, float p) {
   }
 }
 
-template <int kVec>
-struct Cells {
-  float v[kVec];
+// The register word of one vector load of kBytes bytes.
+template <int kBytes>
+struct Word;
+template <>
+struct Word<16> {
+  using type = uint4;
+};
+template <>
+struct Word<8> {
+  using type = uint2;
+};
+template <>
+struct Word<4> {
+  using type = unsigned int;
+};
+template <>
+struct Word<2> {
+  using type = unsigned short;
 };
 
-template <int kVec>
-static __device__ __forceinline__ Cells<kVec> load_cells(const float* p) {
-  Cells<kVec> c;
-  if constexpr (kVec == 4) {
-    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-    c.v[0] = q.x;
-    c.v[1] = q.y;
-    c.v[2] = q.z;
-    c.v[3] = q.w;
-  } else {
-    c.v[0] = __ldg(p);
+// kVec cells of type T, loaded as one word and widened to float on use.
+template <typename T, int kVec>
+struct Cells {
+  static constexpr int kBytes = kVec * static_cast<int>(sizeof(T));
+  typename Word<kBytes>::type word;
+
+  __device__ __forceinline__ void load(const T* p) {
+    word = __ldg(reinterpret_cast<const typename Word<kBytes>::type*>(p));
   }
-  return c;
-}
+
+  // cell k (a compile-time index after unrolling) as float32
+  __device__ __forceinline__ float operator[](int k) const {
+    if constexpr (kBytes == 2) {
+      return __uint_as_float(static_cast<unsigned int>(word) << 16);
+    } else {
+      const unsigned int* u = reinterpret_cast<const unsigned int*>(&word);
+      if constexpr (sizeof(T) == 4) {
+        return __uint_as_float(u[k]);
+      } else {  // two bf16 a word, the lower address in the low half
+        const unsigned int w = u[k >> 1];
+        return __uint_as_float((k & 1) ? (w & 0xffff0000u) : (w << 16));
+      }
+    }
+  }
+};
 
 // Where a lane starts in an image's valid rectangle of vh rows by vcols
 // vectors, and how far its position moves per step of 32 vectors: computed
@@ -104,22 +143,22 @@ struct Walk {
 // (every lane ends with the whole sum). Each round, a lane loads kUnroll
 // vectors before it uses any; bit u * kVec + k of `inside` says whether
 // cell k of vector u was loaded and lies inside the extent.
-template <int kPow, int kVec>
+template <typename T, int kPow, int kVec>
 static __device__ __forceinline__ float pool_plane(
-    const float* __restrict__ plane, int w, int vh, int vw, int vcols,
+    const T* __restrict__ plane, int w, int vh, int vw, int vcols,
     const Walk& walk, float eps, float p) {
-  constexpr int kUnroll = kVec == 4 ? 4 : 8;
+  constexpr int kUnroll = kVec == 1 ? 8 : 4;  // at most 32 cells a round
   constexpr unsigned int kAll = (1u << kVec) - 1;
   float acc = 0.0f;
   int row = walk.row0;
   int col = walk.col0;
   while (row < vh) {
-    Cells<kVec> cells[kUnroll];
+    Cells<T, kVec> cells[kUnroll];
     unsigned int inside = 0;
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       if (row < vh) {
-        cells[u] = load_cells<kVec>(plane + row * w + col * kVec);
+        cells[u].load(plane + row * w + col * kVec);
         const int lim = vw - col * kVec;  // cells of the vector inside
         inside |= (lim >= kVec ? kAll : (1u << lim) - 1) << (u * kVec);
       }
@@ -135,7 +174,7 @@ static __device__ __forceinline__ float pool_plane(
 #pragma unroll
       for (int k = 0; k < kVec; ++k) {
         if ((inside >> (u * kVec + k)) & 1u) {
-          acc += pow_cell<kPow>(fmaxf(cells[u].v[k], eps), p);
+          acc += pow_cell<kPow>(fmaxf(cells[u][k], eps), p);
         }
       }
     }
@@ -145,9 +184,9 @@ static __device__ __forceinline__ float pool_plane(
 
 // This block's channels [c0, c1) of image img: pooled values into `pooled`
 // (shared), and the sum of their squares returned to lane 0 of each warp.
-template <int kPow, int kVec>
+template <typename T, int kPow, int kVec>
 static __device__ __forceinline__ float pool_group(
-    const float* __restrict__ x, float* pooled, int img, int c, int c0,
+    const T* __restrict__ x, float* pooled, int img, int c, int c0,
     int c1, int h, int w, int vh, int vw, float eps, float p) {
   const int lane = threadIdx.x & 31;
   const int warps = blockDim.x >> 5;
@@ -164,10 +203,9 @@ static __device__ __forceinline__ float pool_group(
   float sq = 0.0f;
   for (int ch = c0 + static_cast<int>(threadIdx.x >> 5); ch < c1;
        ch += warps) {
-    const float* plane =
-        x + (static_cast<long long>(img) * c + ch) * h * w;
+    const T* plane = x + (static_cast<long long>(img) * c + ch) * h * w;
     const float acc =
-        pool_plane<kPow, kVec>(plane, w, vh, vw, vcols, walk, eps, p);
+        pool_plane<T, kPow, kVec>(plane, w, vh, vw, vcols, walk, eps, p);
     if (lane == 0) {
       const float v = powf(acc / count, inv_p);
       pooled[ch - c0] = v;
@@ -177,9 +215,9 @@ static __device__ __forceinline__ float pool_group(
   return sq;
 }
 
-template <int kVec>
+template <typename T, int kVec>
 static __global__ void __launch_bounds__(kMaxThreads)
-    gem_l2n_kernel(const float* __restrict__ x,
+    gem_l2n_kernel(const T* __restrict__ x,
                    const int* __restrict__ valid_hw,
                    const float* __restrict__ p_ptr, float* __restrict__ out,
                    int c, int h, int w, int group, float eps) {
@@ -198,11 +236,14 @@ static __global__ void __launch_bounds__(kMaxThreads)
 
   float sq;
   if (p == 1.0f) {
-    sq = pool_group<1, kVec>(x, pooled, img, c, c0, c1, h, w, vh, vw, eps, p);
+    sq = pool_group<T, 1, kVec>(x, pooled, img, c, c0, c1, h, w, vh, vw, eps,
+                                p);
   } else if (p == 3.0f) {
-    sq = pool_group<3, kVec>(x, pooled, img, c, c0, c1, h, w, vh, vw, eps, p);
+    sq = pool_group<T, 3, kVec>(x, pooled, img, c, c0, c1, h, w, vh, vw, eps,
+                                p);
   } else {
-    sq = pool_group<0, kVec>(x, pooled, img, c, c0, c1, h, w, vh, vw, eps, p);
+    sq = pool_group<T, 0, kVec>(x, pooled, img, c, c0, c1, h, w, vh, vw, eps,
+                                p);
   }
 
   const int lane = threadIdx.x & 31;
@@ -234,26 +275,12 @@ static __global__ void __launch_bounds__(kMaxThreads)
   cluster.sync();
 }
 
-// x: (n, c, h, w) contiguous f32; valid_hw: (n, 2) int32; p: one f32;
-// out: (n, c). One launch of n clusters of `cluster` blocks of `threads`
-// threads; block r of an image pools channels [r*group, min((r+1)*group, c)).
-// vec is 4 (float4 loads: w % 4 == 0 and x 16-byte aligned) or 1. The
-// geometry comes from the wrapper (ops/pooling_kernel.py::launch_geometry).
-// Returns the launch's CUDA error (0 when it was accepted).
-extern "C" int gem_l2n_f32(const float* x, const int* valid_hw, const float* p,
-                           float* out, int n, int c, int h, int w, int cluster,
-                           int group, int threads, int vec, float eps,
-                           void* stream) {
-  if (n <= 0 || c <= 0) {
-    return 0;
-  }
-  if ((vec != 4 && vec != 1) || threads > kMaxThreads || threads % 32 != 0 ||
-      cluster < 1 || static_cast<long long>(cluster) * group < c) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  void (*kernel)(const float*, const int*, const float*, float*, int, int,
-                 int, int, float) =
-      vec == 4 ? gem_l2n_kernel<4> : gem_l2n_kernel<1>;
+template <typename T, int kVec>
+static int launch(const T* x, const int* valid_hw, const float* p, float* out,
+                  int n, int c, int cluster, int h, int w, int group,
+                  int threads, float eps, void* stream) {
+  void (*kernel)(const T*, const int*, const float*, float*, int, int, int,
+                 int, float) = gem_l2n_kernel<T, kVec>;
   if (cluster > 8) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -279,4 +306,62 @@ extern "C" int gem_l2n_f32(const float* x, const int* valid_hw, const float* p,
     return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+static bool bad_launch(int threads, int cluster, int group, int c) {
+  return threads > kMaxThreads || threads % 32 != 0 || cluster < 1 ||
+         static_cast<long long>(cluster) * group < c;
+}
+
+// x: (n, c, h, w) contiguous f32 (gem_l2n_f32) or bf16 (gem_l2n_bf16);
+// valid_hw: (n, 2) int32; p: one f32; out: (n, c) f32. One launch of n
+// clusters of `cluster` blocks of `threads` threads; block r of an image
+// pools channels [r*group, min((r+1)*group, c)). vec is the cells a load
+// reads: 4 or 1 for f32 (float4 loads need w % 4 == 0 and x 16-byte
+// aligned), 8, 4, 2 or 1 for bf16 (w % vec == 0 and x aligned to 2 * vec
+// bytes). The geometry comes from the wrapper
+// (ops/pooling_kernel.py::launch_geometry). Returns the launch's CUDA error
+// (0 when it was accepted).
+extern "C" int gem_l2n_f32(const float* x, const int* valid_hw, const float* p,
+                           float* out, int n, int c, int h, int w, int cluster,
+                           int group, int threads, int vec, float eps,
+                           void* stream) {
+  if (n <= 0 || c <= 0) {
+    return 0;
+  }
+  if ((vec != 4 && vec != 1) || bad_launch(threads, cluster, group, c)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return vec == 4 ? launch<float, 4>(x, valid_hw, p, out, n, c, cluster, h,
+                                     w, group, threads, eps, stream)
+                  : launch<float, 1>(x, valid_hw, p, out, n, c, cluster, h,
+                                     w, group, threads, eps, stream);
+}
+
+extern "C" int gem_l2n_bf16(const __nv_bfloat16* x, const int* valid_hw,
+                            const float* p, float* out, int n, int c, int h,
+                            int w, int cluster, int group, int threads,
+                            int vec, float eps, void* stream) {
+  if (n <= 0 || c <= 0) {
+    return 0;
+  }
+  if (bad_launch(threads, cluster, group, c)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (vec) {
+    case 8:
+      return launch<__nv_bfloat16, 8>(x, valid_hw, p, out, n, c, cluster, h,
+                                      w, group, threads, eps, stream);
+    case 4:
+      return launch<__nv_bfloat16, 4>(x, valid_hw, p, out, n, c, cluster, h,
+                                      w, group, threads, eps, stream);
+    case 2:
+      return launch<__nv_bfloat16, 2>(x, valid_hw, p, out, n, c, cluster, h,
+                                      w, group, threads, eps, stream);
+    case 1:
+      return launch<__nv_bfloat16, 1>(x, valid_hw, p, out, n, c, cluster, h,
+                                      w, group, threads, eps, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

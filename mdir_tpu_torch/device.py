@@ -20,12 +20,9 @@ def resolve_device(device="cuda"):
 
 
 def check_compute_dtype(dtype):
-    """The port computes in float32 with TF32 off. ``auto`` means float32
-    until the bfloat16 policy and its first-chunk guard are ported (ROADMAP
-    §1.2), where the JAX package picks bfloat16 on an accelerator."""
-    if dtype == "bfloat16":
-        raise NotImplementedError(
-            "bfloat16 compute and its guard are not ported yet (ROADMAP "
-            "§1.2); use compute_dtype float32 or auto")
-    if dtype not in (None, "auto", "float32"):
-        raise ValueError("unknown compute_dtype %r" % (dtype,))
+    """Raise on a ``compute_dtype`` the port does not know. float32 runs
+    with TF32 off; ``auto`` and ``bfloat16`` resolve in
+    ``ops.dtypes.resolve_compute_dtype``."""
+    if dtype not in (None, "auto", "float32", "f32", "bfloat16"):
+        raise ValueError("unknown compute_dtype %r (auto, float32 or "
+                         "bfloat16)" % (dtype,))

@@ -30,14 +30,28 @@ Per tuple: the uint8 bucket goes through the device chain
 ``clahe_bucket_aux``), is masked to the valid extents, runs the trunk with
 the extents, the GeM + L2N head under autograd (its plain version), and the
 criterion on D x N columns. The chain's kernels take uint8 input and need no
-gradient. Training runs in float32: ``compute_dtype: bfloat16`` (ROADMAP
-§1.2) and ``param_sharding: zero`` (ROADMAP §1.7) raise.
+gradient. ``param_sharding: zero`` (ROADMAP §1.7) raises.
+
+Compute dtype (``ops/dtypes.py``; JAX ``train_step.py:39-100,268-299``): in
+bfloat16 only the trunk runs in bf16, from its float32 master parameters
+cast inside the differentiated call (``torch.func.functional_call``), so
+the gradients land on the float32 parameters; the head takes float32
+features (``head_dtype``) and the loss stays float32. Not ``torch.autocast``:
+it keeps frozen BatchNorm and some ops in float32 and casts per op, another
+program than the reference's. A ``SequentialNetwork``, a module with a train
+mode (Dropout) or without the head seam trains in float32. Under ``auto``
+the first step, and every ``TRAIN_GUARD_REARM``-th after it, also runs in
+float32: unless the bf16 gradient is finite, its loss within 5 % and its
+flattened gradient at cosine >= 0.95 of float32's, the float32 result is
+kept and training stays float32.
 """
+import inspect
+
 import numpy as np
 import torch
 
-from ..device import check_compute_dtype
 from ..models.trunks import apply_valid_mask
+from ..ops import dtypes as dtype_policy
 from ..ops.clahe import aux_to_device, clahe_bucket_aux
 from ..ops.preprocess import make_bucketed_chain
 
@@ -72,9 +86,7 @@ def prepare_batch(batch_images, batch_targets,
             for tpl, target in zip(batch_images, batch_targets)]
 
 
-def _check_runtime(runtime, compute_dtype, param_sharding):
-    check_compute_dtype(runtime.get("compute_dtype")
-                        if compute_dtype == "auto" else compute_dtype)
+def _check_sharding(runtime, param_sharding):
     sharding = runtime.get("param_sharding") if param_sharding == "auto" \
         else param_sharding
     if sharding not in (None, "dp", "none"):
@@ -83,18 +95,52 @@ def _check_runtime(runtime, compute_dtype, param_sharding):
             % (sharding,))
 
 
+def _bf16_trainable(network):
+    """Whether a network's step may run its trunk in a fast dtype: one
+    model with the head seam and no train mode (JAX ``TrainStep``'s
+    exclusions)."""
+    model = getattr(network, "model", None)
+    return not hasattr(network, "sequence") and model is not None \
+        and hasattr(model, "features") \
+        and "head_dtype" in inspect.signature(model.forward).parameters \
+        and not any(isinstance(m, torch.nn.Dropout) and m.p > 0
+                    for m in model.modules())
+
+
 class TrainStep:
-    """Loss and accumulated gradients of a tuple batch for one network."""
+    """Loss and accumulated gradients of a tuple batch for one network.
+
+    ``compute_dtype`` "auto" takes the network runtime's; ``guard_reports``
+    lists each guard run's loss gap, gradient cosine and verdict.
+    """
 
     def __init__(self, network, criterion, device_chain=None,
                  compute_dtype="auto", param_sharding="auto"):
-        _check_runtime(network.network_params.runtime, compute_dtype,
-                       param_sharding)
+        _check_sharding(network.network_params.runtime, param_sharding)
         self.network = network
         self.criterion = criterion
         self.device_chain = device_chain
         self.chain_fn = make_bucketed_chain(device_chain) \
             if device_chain is not None else None
+        runtime = dict(network.network_params.runtime)
+        if compute_dtype != "auto":
+            runtime["compute_dtype"] = compute_dtype
+        dtype, guard = dtype_policy.resolve_compute_dtype(runtime,
+                                                          network.device)
+        if dtype is not None and not _bf16_trainable(network):
+            dtype, guard = None, False
+        self.guard_pending = False
+        if dtype is not None and guard:
+            decision = dtype_policy.guard_decision(network.model, "train")
+            if decision is False:
+                dtype = None
+            elif decision is None:
+                self.guard_pending = True
+        self.compute_dtype = dtype
+        self.rearm_every = dtype_policy.TRAIN_GUARD_REARM \
+            if dtype is not None and guard else 0
+        self.steps = 0
+        self.guard_reports = []
 
     def chain(self, batch, valid):
         """The device chain of one uint8 bucket (NHWC float32, unmasked);
@@ -109,26 +155,92 @@ class TrainStep:
                 clip_limit=clip, grid=grid), batch.device)
         return self.chain_fn(batch, aux)
 
-    def tuple_loss(self, batch, valid, targets):
-        """The criterion of one tuple's bucket, with its graph."""
+    def tuple_loss(self, batch, valid, targets, compute_dtype=None):
+        """The criterion of one tuple's bucket, with its graph; with
+        ``compute_dtype`` the trunk runs in it from cast master weights."""
         device = self.network.device
         batch = torch.from_numpy(batch).to(device)
         valid_t = torch.from_numpy(valid).to(device)
         x = self.chain(batch, valid)
         x = apply_valid_mask(x.permute(0, 3, 1, 2), valid_t).contiguous()
-        out = self.network.model(x, valid_t).to(torch.float32)
+        model = self.network.model
+        if compute_dtype is None:
+            out = model(x, valid_t)
+        else:
+            out = torch.func.functional_call(
+                model, dtype_policy.cast_trunk(model, compute_dtype),
+                (x.to(compute_dtype), valid_t),
+                {"head_dtype": torch.float32})
+        out = out.to(torch.float32)
         return self.criterion(out.T, torch.from_numpy(targets).to(device))
+
+    def _accumulate(self, buckets, compute_dtype):
+        elements = sum(valid.shape[0] for _, valid, _ in buckets)
+        total = 0.0
+        for batch, valid, targets in buckets:
+            loss = self.tuple_loss(batch, valid, targets, compute_dtype)
+            if self.criterion.reduction == "mean":
+                loss = loss * (valid.shape[0] / elements)
+            loss.backward()
+            total = total + loss.detach()
+        return total
 
     def gradients(self, batch_images, batch_targets):
         """Accumulate the batch's gradients into the parameters' ``.grad``;
         return the batch's loss (a 0-d tensor) and its number of tuples."""
         buckets = prepare_batch(batch_images, batch_targets)
-        elements = sum(valid.shape[0] for _, valid, _ in buckets)
-        total = 0.0
-        for batch, valid, targets in buckets:
-            loss = self.tuple_loss(batch, valid, targets)
-            if self.criterion.reduction == "mean":
-                loss = loss * (valid.shape[0] / elements)
-            loss.backward()
-            total = total + loss.detach()
-        return total, len(buckets)
+        self.steps += 1
+        if self.compute_dtype is not None and self.rearm_every \
+                and self.steps > 1 \
+                and (self.steps - 1) % self.rearm_every == 0:
+            self.guard_pending = True
+        if not self.guard_pending:
+            return self._accumulate(buckets, self.compute_dtype), len(buckets)
+        return self._run_dtype_guard(buckets), len(buckets)
+
+    def _run_dtype_guard(self, buckets):
+        """The batch in the fast dtype and in float32, each into its own
+        gradients (the ones already accumulated set aside and added back):
+        the fast result is kept when its gradient is finite, its loss within
+        ``TRAIN_GUARD_LOSS_RTOL`` and its flattened gradient at cosine >=
+        ``TRAIN_GUARD_MIN_COSINE`` of float32's, else the float32 result,
+        and the step computes float32 from here on."""
+        self.guard_pending = False
+        params = [p for p in self.network.model.parameters()
+                  if p.requires_grad]
+        before = [p.grad for p in params]
+        runs = []
+        for dtype in (self.compute_dtype, None):
+            for p in params:
+                p.grad = None
+            loss = self._accumulate(buckets, dtype)
+            runs.append((loss, [p.grad for p in params]))
+        (loss_f, grads_f), (loss_e, grads_e) = runs
+
+        def flat(grads):
+            return torch.cat([(torch.zeros_like(p) if g is None else g)
+                              .reshape(-1).to(torch.float32)
+                              for p, g in zip(params, grads)])
+
+        flat_f, flat_e = flat(grads_f), flat(grads_e)
+        gap = abs(float(loss_f) - float(loss_e)) \
+            / max(abs(float(loss_e)), 1e-6)
+        cosine = float(dtype_policy.row_cosines(flat_f, flat_e))
+        finite = bool(torch.isfinite(flat_f).all())
+        ok = finite and gap <= dtype_policy.TRAIN_GUARD_LOSS_RTOL \
+            and dtype_policy.cosine_rows_ok(
+                flat_f[None], flat_e[None],
+                dtype_policy.TRAIN_GUARD_MIN_COSINE)
+        self.guard_reports.append({"step": self.steps, "loss_gap": gap,
+                                   "grad_cosine": cosine, "finite": finite,
+                                   "ok": ok})
+        dtype_policy.record_guard_decision(self.network.model, ok, "train")
+        if not ok:
+            print(">> bfloat16 train guard: loss gap %.3g, gradient cosine "
+                  "%.6f (finite %s) against float32; training float32 from "
+                  "here on" % (gap, cosine, finite))
+            self.compute_dtype = None
+        loss, grads = runs[0] if ok else runs[1]
+        for p, old, g in zip(params, before, grads):
+            p.grad = g if old is None else (old if g is None else old + g)
+        return loss

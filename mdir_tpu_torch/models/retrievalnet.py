@@ -8,6 +8,12 @@ the CUDA kernel, on the CPU its plain version. The kernel is eval-only, so
 where a gradient is wanted the head runs the plain version on either, as the
 JAX package trains through its XLA GeM. MAC and SPoC heads are plain
 PyTorch. Regional pooling (RMAC, Rpool) comes with a later slice.
+
+Mixed precision (``ops/dtypes.py``): a bfloat16 copy of the net feeds its
+head the trunk's bf16 map (the GeM kernel reads it at half the bytes and
+pools in float32); the training step passes ``head_dtype=torch.float32``,
+the JAX module's ``head_dtype`` seam, so a bf16 trunk feeds a float32 head
+and the loss's arithmetic stays in float32.
 """
 import torch
 import torch.nn as nn
@@ -70,13 +76,17 @@ class ImageRetrievalNet(nn.Module):
     def device(self):
         return next(self.parameters()).device
 
-    def forward(self, x, valid_hw=None):
+    def forward(self, x, valid_hw=None, head_dtype=None):
         """x: (N, 3, H, W) -> (N, D) L2-normalised descriptors.
 
         ``valid_hw`` (N, 2) int32 gives each image's true size inside a
         padded bucket; None means every image fills the tensor.
+        ``head_dtype`` casts the trunk's output before lwhiten, pool, L2N
+        and whiten.
         """
         o, valid_hw = self.features(x, valid_hw)
+        if head_dtype is not None:
+            o = o.to(head_dtype)
         if valid_hw is None:
             valid_hw = torch.tensor(o.shape[-2:], dtype=torch.int32,
                                     device=o.device).expand(o.shape[0], 2)
@@ -93,5 +103,6 @@ class ImageRetrievalNet(nn.Module):
             o = pool_ops.l2n(pool_ops.POOLING[self.pooling](o, mask=mask))
 
         if self.whiten is not None:
-            o = pool_ops.l2n(self.whiten(o))
+            # in the layer's dtype: the GeM kernel gives float32 for bf16
+            o = pool_ops.l2n(self.whiten(o.to(self.whiten.weight.dtype)))
         return o

@@ -25,10 +25,18 @@ followed by ``^(1/msp)``, L2 and Lw. A network that neither batched path
 takes runs the exact per-image path: each image through the host
 transform and the network's own wrappers.
 
+Compute dtype (``ops/dtypes.py``, the network's ``runtime: compute_dtype``;
+a composition's from its embedder): in bfloat16 the trunks run from a bf16
+copy of each model, the input cast at the conv boundary, after the float32
+resize and mask (a bf16 input to the float32-weighted gather would come out
+float32 again), and the descriptors come back float32. Under ``auto`` the
+first chunk also runs in float32: below the cosine bar its float32 result
+is what the extractor keeps, and the run (and every later one of that
+model, per process) computes float32. The exact per-image path is float32.
+
 Everything runs synchronously on the calling thread: chunks are copied to the
 device and launched in order on the current stream, and ``finish`` copies
-the descriptors back. Nothing here starts a thread or a process. The port
-computes in float32 (``device.check_compute_dtype``).
+the descriptors back. Nothing here starts a thread or a process.
 """
 import collections
 import math
@@ -40,6 +48,7 @@ from ..device import check_compute_dtype
 from ..learning.wrappers import (CirMultiscaleAggregation, CirtorchWhiten,
                                  FakeBatch, ReflectPadMakeDivisible)
 from ..models.trunks import apply_valid_mask
+from ..ops import dtypes as dtype_policy
 from ..ops import preprocess
 from ..ops.clahe import aux_to_device, clahe_bucket_aux
 from ..ops.resize import gather_crop, gather_resize, torch_resize_grid
@@ -93,13 +102,15 @@ def _plain_normalize_chain(transform):
 
 @torch.no_grad()
 def fused_forward(model, scales, batch, valid_hw, grids, msp, P=None, m=None,
-                  mean=None, std=None, chain_fn=None, clahe_aux=None):
-    """One chunk's descriptors: (B, H, W, C) bucket -> (B, D).
+                  mean=None, std=None, chain_fn=None, clahe_aux=None,
+                  compute_dtype=None):
+    """One chunk's descriptors: (B, H, W, C) bucket -> (B, D) float32.
 
     batch is uint8 (normalised here with ``mean``/``std``, or run through
     ``chain_fn(batch, clahe_aux)``, the device chain) or float32 (already
     normalised on the host); valid_hw (B, 2) int32; grids[s] is None for
     scale 1, else (y0, y1, wy, x0, x1, wx, out_valid) of that scale.
+    ``compute_dtype`` casts each scale's input to the model's dtype.
     """
     if chain_fn is not None:
         # the whole chain at full resolution in NHWC, then one permute
@@ -120,6 +131,8 @@ def fused_forward(model, scales, batch, valid_hw, grids, msp, P=None, m=None,
         else:
             v = grid[-1]
             xs = apply_valid_mask(gather_resize(x, *grid[:-1]), v)
+        if compute_dtype is not None:  # at the conv boundary
+            xs = xs.to(compute_dtype)
         powed = model(xs, v).to(torch.float32) ** msp
         acc = powed if acc is None else acc + powed
     v = (acc / len(scales)) ** (1.0 / msp)
@@ -139,11 +152,17 @@ class StreamingExtractor:
     photometric chain runs on the device, with each chunk's CLAHE tile
     geometry computed here from the images' true shapes; otherwise they are
     float32 arrays normalised on the host.
+
+    ``compute_dtype`` (a torch dtype, or None for float32) runs the chunks
+    from a copy of the model in that dtype; ``dtype_guard`` checks the
+    first chunk against float32 (``guard_report`` holds its least row
+    cosine and verdict) unless the model's verdict is cached.
     """
 
     def __init__(self, model, scales=(1,), msp=1.0, whiten=None,
                  normalize_mean_std=None, bucket_multiple=BUCKET_MULTIPLE,
-                 max_batch=MAX_BATCH, device_chain=None):
+                 max_batch=MAX_BATCH, device_chain=None, compute_dtype=None,
+                 dtype_guard=False):
         self.model = model
         self.device = model.device
         self.scales = list(scales)
@@ -168,6 +187,17 @@ class StreamingExtractor:
                 raise ValueError("a device chain normalizes itself")
             self.chain_fn = preprocess.make_bucketed_chain(device_chain)
             self.host_dtype = np.uint8
+        self.guard_pending = False
+        self.guard_report = None
+        if compute_dtype is not None and dtype_guard:
+            decision = dtype_policy.guard_decision(model)
+            if decision is False:
+                compute_dtype = None
+            elif decision is None:
+                self.guard_pending = True
+        self.compute_dtype = compute_dtype
+        self.fast_model = model if compute_dtype is None \
+            else dtype_policy.fast_copy(model, compute_dtype)
         self.buffers = collections.defaultdict(list)  # bucket -> [(i, arr)]
         self.saw_full = set()  # buckets that ran a full-size chunk
         self.results = []  # (indices, device descriptors)
@@ -238,13 +268,34 @@ class StreamingExtractor:
             clahe_aux = aux_to_device(clahe_bucket_aux(
                 list(shapes) + [bucket] * (bsz - len(items)), bucket,
                 clip_limit=clip, grid=grid), self.device)
-        vecs = fused_forward(
-            self.model, self.scales, torch.from_numpy(batch).to(self.device),
-            torch.from_numpy(valid).to(self.device),
-            self._grids(shapes, bsz, bucket), self.msp, self.P, self.m,
-            self.mean, self.std, self.chain_fn, clahe_aux)
+        args = (torch.from_numpy(batch).to(self.device),
+                torch.from_numpy(valid).to(self.device),
+                self._grids(shapes, bsz, bucket), self.msp, self.P, self.m,
+                self.mean, self.std, self.chain_fn, clahe_aux)
+        vecs = fused_forward(self.fast_model, self.scales, *args,
+                             compute_dtype=self.compute_dtype)
+        if self.guard_pending:
+            vecs = self._run_dtype_guard(vecs, args, len(items))
         self.chunks += 1
         self.results.append(([i for i, _ in items], vecs))
+
+    def _run_dtype_guard(self, fast, args, n):
+        """The first chunk's float32 cross-check (JAX ``_run_dtype_guard``):
+        the same chunk through the float32 model; if the fast rows drift
+        below the cosine bar, the float32 chunk is returned and this run
+        (and, through the cached verdict, every later one of the model)
+        computes float32."""
+        self.guard_pending = False
+        exact = fused_forward(self.model, self.scales, *args)
+        ok = dtype_policy.cosine_rows_ok(fast[:n], exact[:n])
+        self.guard_report = _guard_report(fast[:n], exact[:n], ok,
+                                          "extraction")
+        dtype_policy.record_guard_decision(self.model, ok)
+        if ok:
+            return fast
+        self.compute_dtype = None
+        self.fast_model = self.model
+        return exact
 
     def finish(self, n):
         """Run the partial buckets; return the (D, N) descriptors (numpy)."""
@@ -260,6 +311,16 @@ class StreamingExtractor:
                 out[i] = host[bi]
         self.results = []
         return out.T
+
+
+def _guard_report(fast, exact, ok, kind):
+    """The guard's least row cosine and verdict; a rejection is printed."""
+    least = float(dtype_policy.row_cosines(fast, exact).min())
+    if not ok:
+        print(">> %s bfloat16 guard: least row cosine %.6f against float32 "
+              "(bar %g); computing float32 from here on"
+              % (kind, least, dtype_policy.GUARD_MIN_COSINE))
+    return {"min_cosine": least, "ok": ok}
 
 
 def extract_vectors_batched(model, arrays, scales=(1,), msp=1.0, whiten=None,
@@ -298,15 +359,17 @@ def network_extractor(network, transform, batch_size=MAX_BATCH):
     photometric chain (CLAHE, tospace) it takes uint8 RGB and runs the
     chain on the device (``ops.preprocess.chain_from_transform``), and a
     chain that does not lower raises; otherwise it takes float32 arrays
-    that ``transform`` produced on the host.
+    that ``transform`` produced on the host. The compute dtype and its guard
+    come from the network's runtime (``ops.dtypes.resolve_compute_dtype``).
     """
     analyzed = _analyze_wrappers(network)
     if analyzed is None:
         raise ValueError("the eval wrappers of %s have no batched extraction"
                          % type(network).__name__)
-    check_compute_dtype(network.network_params.runtime.get("compute_dtype"))
     scales, whiten = analyzed
     model = network.model
+    compute_dtype, dtype_guard = dtype_policy.resolve_compute_dtype(
+        network.network_params.runtime, model.device)
     mean_std = _plain_normalize_chain(transform)
     if mean_std is not None and len(mean_std[0]) != 3:
         mean_std = None
@@ -322,7 +385,8 @@ def network_extractor(network, transform, batch_size=MAX_BATCH):
         model, scales=scales,
         msp=CirMultiscaleAggregation.msp(model, len(scales)), whiten=whiten,
         max_batch=batch_size, normalize_mean_std=mean_std,
-        device_chain=chain)
+        device_chain=chain, compute_dtype=compute_dtype,
+        dtype_guard=dtype_guard)
 
 
 def _plain_ingress(transform):
@@ -382,14 +446,17 @@ def composed_crop_hws(raw_bucket, pads, scales,
 
 @torch.no_grad()
 def composed_forward(translate, embed, batch, packs, crop_hws, msp,
-                     mean=None, std=None):
+                     mean=None, std=None, compute_dtype=None):
     """One composed chunk: (B, H, W, C) raw bucket -> (S, B, D) per-scale
-    descriptors ** msp.
+    descriptors ** msp, float32.
 
     batch is uint8 (normalised here with ``mean``/``std``) or float32
     (normalised on the host); packs[s] is (valid (B, 2), ypack (B, PH, 4),
     xpack (B, PW, 4)) of scale s on the device; translate maps (B, C, PH,
     PW) images to images, embed (images, valid) to (B, D) descriptors.
+    ``compute_dtype`` casts the translator's padded input after the
+    float32 gather (JAX: a float32 input against a bf16 transposed-conv
+    kernel fails) and the embedder's masked crop.
     """
     x = batch.permute(0, 3, 1, 2)
     if mean is not None:
@@ -401,9 +468,14 @@ def composed_forward(translate, embed, batch, packs, crop_hws, msp,
         ys, xs = ypack.to(torch.int64), xpack.to(torch.int64)
         padded = gather_resize(x, ys[..., 0], ys[..., 1], ypack[..., 2],
                                xs[..., 0], xs[..., 1], xpack[..., 2])
+        if compute_dtype is not None:
+            padded = padded.to(compute_dtype)
         translated = gather_crop(translate(padded), ys[:, :ch, 3],
                                  xs[:, :cw, 3])
-        vecs = embed(apply_valid_mask(translated, valid), valid)
+        crop = apply_valid_mask(translated, valid)
+        if compute_dtype is not None:
+            crop = crop.to(compute_dtype)
+        vecs = embed(crop, valid)
         out.append(vecs.to(torch.float32) ** msp)
     return torch.stack(out)
 
@@ -417,7 +489,10 @@ class ComposedExtractor:
     composition's. ``translate`` and ``embed`` are the two models' forward
     calls. With ``normalize_mean_std`` the arrays are uint8 pixels and the
     normalisation runs on the device, otherwise they are float32 arrays
-    normalised on the host.
+    normalised on the host. The compute dtype comes from the embedder's
+    runtime; in bfloat16 both models run from bf16 copies, and under
+    ``auto`` the first chunk's (S, B, D) rows are held against float32
+    under the guard kind ``composed`` (JAX ``extract.py:1240-1268``).
     """
 
     def __init__(self, network, normalize_mean_std=None,
@@ -426,13 +501,25 @@ class ComposedExtractor:
             raise ValueError("%s has no composed batched extraction"
                              % type(network).__name__)
         head, tail = (network.networks[name] for name in network.sequence)
-        check_compute_dtype(tail.network_params.runtime.get("compute_dtype"))
         pad = head.wrappers["eval"].wrappers
         self.divisor = pad[0].divisible_by if pad else 1
         self.scales, self.whiten = _analyze_wrappers(network)
         self.msp = CirMultiscaleAggregation.msp(tail.model, len(self.scales))
-        self.translate = head.model
-        self.embed = tail.model
+        compute_dtype, dtype_guard = dtype_policy.resolve_compute_dtype(
+            tail.network_params.runtime, tail.model.device)
+        self.guard_pending = False
+        self.guard_report = None
+        if compute_dtype is not None and dtype_guard:
+            decision = dtype_policy.guard_decision(tail.model, "composed")
+            if decision is False:
+                compute_dtype = None
+            elif decision is None:
+                self.guard_pending = True
+        self.compute_dtype = compute_dtype
+        self.models = (head.model, tail.model)  # float32
+        self.translate, self.embed = self.models if compute_dtype is None \
+            else (dtype_policy.fast_copy(m, compute_dtype)
+                  for m in self.models)
         self.device = tail.model.device
         self.dim = tail.meta["out_channels"]
         self.bucket_multiple = bucket_multiple
@@ -484,11 +571,24 @@ class ComposedExtractor:
                     arr.shape[0], arr.shape[1], scale, self.divisor, ph, pw)
             packs.append(tuple(torch.from_numpy(a).to(self.device)
                                for a in (valid, ypack, xpack)))
-        vecs = composed_forward(
-            self.translate, self.embed,
-            torch.from_numpy(batch).to(self.device), packs,
-            composed_crop_hws(raw_bucket, pads, self.scales), self.msp,
-            self.mean, self.std)
+        args = (torch.from_numpy(batch).to(self.device), packs,
+                composed_crop_hws(raw_bucket, pads, self.scales), self.msp,
+                self.mean, self.std)
+        vecs = composed_forward(self.translate, self.embed, *args,
+                                compute_dtype=self.compute_dtype)
+        if self.guard_pending:
+            # the first chunk against float32: the stacked (S, B, D) rows
+            # compare along their last axis
+            self.guard_pending = False
+            exact = composed_forward(*self.models, *args)
+            ok = dtype_policy.cosine_rows_ok(vecs, exact)
+            self.guard_report = _guard_report(vecs, exact, ok, "composed")
+            dtype_policy.record_guard_decision(self.models[1], ok,
+                                               "composed")
+            if not ok:
+                self.compute_dtype = None
+                self.translate, self.embed = self.models
+                vecs = exact
         self.chunks += 1
         self.results.append(([i for i, _ in items], vecs))
 

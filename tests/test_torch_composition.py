@@ -246,7 +246,7 @@ def test_scenario_build_resume_check_and_refusals(checkpoints):
     """A composition from its scenario section (a composition-level runtime
     routed to the members), its checkpoint reloaded against the declared
     params, and what the port refuses: another declared sequence,
-    ``train()``, and bfloat16 compute."""
+    ``train()``; and bfloat16 compute routed to the embedder."""
     def scenario():
         return {"sequence": "translate,embed",
                 "runtime": {"wrappers": _eval_runtime(False)["wrappers"]},
@@ -275,8 +275,9 @@ def test_scenario_build_resume_check_and_refusals(checkpoints):
     bf16 = load_network({"path": checkpoints["directory"],
                          "runtime": {"compute_dtype": "bfloat16"}},
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="§1.2"):
-        extract.ComposedExtractor(bf16, MEAN_STD)
+    extractor = extract.ComposedExtractor(bf16, MEAN_STD)
+    assert extractor.compute_dtype == torch.bfloat16
+    assert not extractor.guard_pending
 
 
 def test_overlay_falsy_tail_keeps_wrappers(checkpoints):

@@ -120,6 +120,20 @@ def test_gem_launch_geometry(shape):
     assert pooling_kernel.launch_geometry(n, c, h, w, False).load_bytes == 4
 
 
+@pytest.mark.parametrize("w,alignment,load_bytes", [
+    (24, 16, 16), (32, 256, 16), (20, 16, 8), (22, 16, 4), (23, 16, 2),
+    (24, 8, 8), (24, 4, 4), (24, 2, 2), (24, False, 2)])
+def test_gem_launch_geometry_bf16(w, alignment, load_bytes):
+    """bfloat16 rows load 16 bytes (8 cells) where the width and the
+    tensor's alignment allow, else 8, 4 or 2 bytes; the channel split is
+    the float32 one."""
+    g = pooling_kernel.launch_geometry(16, 2048, 32, w, alignment, 2)
+    assert g.load_bytes == load_bytes
+    assert g[:2] + g[3:] == pooling_kernel.launch_geometry(
+        16, 2048, 32, w)[:2] + pooling_kernel.launch_geometry(
+            16, 2048, 32, w)[3:]
+
+
 @pytest.mark.parametrize("c", [1, 9, 1001])
 def test_gem_launch_geometry_odd_channels(c):
     g = pooling_kernel.launch_geometry(1, c, 5, 8)

@@ -10,14 +10,16 @@ Phases, one line each with its wall time:
   3. kernel: the GeM+L2N kernel against its plain PyTorch version on the
      card, at the extraction shapes, ragged valid extents included, at
      p = 1, 2.5, 3 and 4.7 (the kernel multiplies out p = 1 and 3 and
-     takes exp2/log2 for any other), and its bfloat16-input instantiation
-     against the float32 pool of the same cells at bf16 maps whose widths
-     load 8, 4, 2 and 1 cells; and the GeM head under autograd on the card
+     takes one exp2 of a split log2 for any other), and its bfloat16- and
+     float16-input instantiations against the float32 pool of the same
+     cells at 16-bit maps whose widths load 8, 4, 2 and 1 cells, also as
+     views 4 bytes past a 16-byte boundary; and the GeM head under autograd
+     on the card
      (its plain version: the kernel is eval-only) against the CPU's
      gradients;
   Phases 4 to 10 pin ``compute_dtype: float32`` (``auto`` would run
   bfloat16 on the card), so their gates and numbers stay comparable with
-  the earlier records; phase 11 runs bfloat16.
+  the earlier records; phase 11 runs bfloat16 and float16.
   4. main path: the validate path of a ResNet101-GeM (2048-d, random weights
      from a seed, p = 3, Lw whitening, scales 1, 2^-1/2, 1/2, image size
      1024) on 32 database and 8 query uint8 images made from a seed:
@@ -31,7 +33,7 @@ Phases, one line each with its wall time:
   5. the kernel at the main path's own shapes and the four p, and its time
      against its plain version and its bound (and its share of the bound)
      at the path's largest input at the path's p = 3 and at p = 2.5, and at
-     its largest input of fewer than FULL_BATCH images (the small-batch
+     its largest input of fewer than SMALL_BATCH images (the small-batch
      launch);
   6. the lab CLAHE chain's kernels (lab_n, clahe_tile_luts, clahe_interp)
      against their plain versions on the card, bit-equal: lab_n on all
@@ -96,11 +98,20 @@ Phases, one line each with its wall time:
      each chunk's least row cosine and the top-10 ranks against the path's
      float32 run; gem_l2n's bf16 instantiation must launch once per chunk x
      scale), then with ``auto``: the guard must run once, on the first
-     chunk, and a rejection must give descriptors within 1e-4 of float32.
-     The bf16 kernel is held within 1e-5 relative of its plain version at
-     every input the bf16 runs gave it, and timed there against its bound.
-Then one JSON line of kernels (gem_l2n_bf16 beside gem_l2n; their launches
-on the training and composition paths, mining and train step apart), the
+     chunk, and a rejection must give descriptors within 1e-4 of float32;
+     then the VGG16 lab CLAHE path with ``compute_dtype: float16`` (forced,
+     unguarded: the float16 instantiation must launch once per chunk x
+     scale; its least row cosine against float32 is printed, not gated,
+     as the JAX package sets no bar for float16). Both 16-bit kernels are
+     held within 1e-5 relative of their plain versions at every input the
+     bf16 runs gave the pool (and the float16 kernel at the float16 run's),
+     each also as an offset view, and timed at each path's largest input
+     and its 8-image launch at p = 3 and 2.5 against the bound.
+Then one JSON line of kernels (gem_l2n, gem_l2n_bf16 timed at the bf16
+paths' maps, gem_l2n_f16 at the float16 path's, with its times at the bf16
+maps as off-path readings; each redesigned kernel tagged with the PR of
+its redesign; launches on the training and composition paths, mining and
+train step apart), the
 nvidia-smi line, and the last line
 {"ok": true, "device": {...}}. Any failure raises (non-zero exit, no last
 line). Without a card, or without the port beside it, it fails at once.
@@ -125,8 +136,8 @@ SEED = 0
 IMAGE_SIZE = 1024
 SCALES = [1, 2 ** -0.5, 0.5]
 KERNEL_SHAPES = [(16, 2048, 32, 24), (16, 2048, 23, 17), (3, 2048, 7, 9)]
-# the bf16-input kernel: the ResNet and VGG16 maps, widths that load 8, 4,
-# 2 and 1 cells, the small-batch launch
+# the 16-bit-input kernels (bfloat16 and float16): the ResNet and VGG16
+# maps, widths that load 8, 4, 2 and 1 cells, the small-batch launch
 BF16_KERNEL_SHAPES = [(16, 2048, 32, 24), (16, 2048, 32, 20),
                       (16, 2048, 18, 22), (16, 2048, 23, 17),
                       (16, 512, 64, 48), (8, 512, 48, 64), (3, 2048, 7, 9)]
@@ -137,11 +148,14 @@ P_VALUES = (1.0, 2.5, 3.0, 4.7)  # GeM exponents the kernel is held at
 PATH_P, OTHER_P = 3.0, 2.5  # the path's p (timed) and a non-integer p
 # the kernels' "redesigned" tag in the kernels line: where the records
 # (PERF.md §6) hold their earlier times
-REDESIGNED = {"gem_l2n": "PR 6", "lab_n": "PR 6", "clahe_tile_luts": "PR 7",
+REDESIGNED = {"gem_l2n": "PR 6, PR 11", "gem_l2n_bf16": "PR 11",
+              "lab_n": "PR 6", "clahe_tile_luts": "PR 7",
               "clahe_interp": "PR 7"}
+HALF_TYPES = (torch.bfloat16, torch.float16)
 RTOL, ATOL = 1e-5, 1e-6  # kernel against its plain version
 DESC_ATOL = 1e-4  # descriptors, kernel pool against plain pool
 TIMED_LAUNCHES = 100
+SMALL_BATCH = 12  # a chunk of fewer images: the 8-image launch is timed too
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate
 F32_FLOP_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
 MODEL = {"architecture": "cirnet", "cir_architecture": "resnet101",
@@ -307,10 +321,11 @@ def recording_pool(launch, sink, dtypes=None):
 def gem_path_phase(tag, pooling_kernel, gem_l2n_plain, inputs, gen, device,
                    dtype=torch.float32):
     """The kernel at every distinct (shape, valid extents) input a main path
-    gave it, on random values of ``dtype``, at P_VALUES against plain; then
-    its time at the path's largest input (at PATH_P and OTHER_P, against
-    plain and the bound) and at its largest input of fewer than FULL_BATCH
-    images, which takes the small-batch launch."""
+    gave it, on random values of ``dtype``, at P_VALUES against plain (a
+    16-bit map also as a view 4 bytes past a 16-byte boundary); then its
+    time at the path's largest input and at its largest input of fewer
+    than SMALL_BATCH images, its small-batch launch (each at
+    PATH_P and OTHER_P, against plain and the bound)."""
     distinct = {}
     for shape, valid in inputs:
         distinct.setdefault((shape, tuple(map(tuple, valid.tolist()))),
@@ -320,6 +335,9 @@ def gem_path_phase(tag, pooling_kernel, gem_l2n_plain, inputs, gen, device,
         x = torch.rand(shape, generator=gen).to(device, dtype)
         err = max(err, kernel_against_plain(pooling_kernel, gem_l2n_plain,
                                             x, valid))
+        if dtype in HALF_TYPES:
+            err = max(err, kernel_against_plain(
+                pooling_kernel, gem_l2n_plain, offset_copy(x), valid))
     p, other_p = (torch.tensor([v], device=device)
                   for v in (PATH_P, OTHER_P))
 
@@ -340,24 +358,29 @@ def gem_path_phase(tag, pooling_kernel, gem_l2n_plain, inputs, gen, device,
 
     largest, (other_ms,) = timed(*max(inputs, key=size), (p, other_p))
     largest["ms_p%g" % OTHER_P] = other_ms
-    say("time", "gem_l2n, %s path: %d inputs of shapes %s x %d p against "
-        "plain, max err %.2e; at its largest %s: %.4f ms (%.0f%% of bound) "
-        "at p = %g, %.4f ms (%.0f%%) at p = %g; plain %.4f ms, bound %.4f "
-        "ms (%s)"
-        % (tag, len(distinct), sorted({shape for shape, _ in distinct}),
+    say("time", "gem_l2n, %s path, %s: %d inputs of shapes %s x %d p "
+        "against plain, max err %.2e; at its largest %s: %.4f ms (%.0f%% of "
+        "bound) at p = %g, %.4f ms (%.0f%%) at p = %g; plain %.4f ms, bound "
+        "%.4f ms (%s)"
+        % (tag, str(dtype)[6:], len(distinct),
+           sorted({shape for shape, _ in distinct}),
            len(P_VALUES), err, tuple(largest["shape"]),
            largest["ms"], 100 * largest["bound_share"], PATH_P, other_ms,
            100 * largest["bound_ms"] / other_ms, OTHER_P,
            largest["plain_ms"], largest["bound_ms"], largest["bound_by"]))
     small_inputs = [sv for sv in inputs
-                    if sv[0][0] < pooling_kernel.FULL_BATCH]
+                    if sv[0][0] < SMALL_BATCH]
     small = None
     if small_inputs:
-        small = timed(*max(small_inputs, key=size), (p,))[0]
-        say("time", "gem_l2n, %s path, small-batch launch at %s: %.4f ms "
-            "(%.0f%% of bound %.4f ms) at p = %g"
-            % (tag, tuple(small["shape"]), small["ms"],
-               100 * small["bound_share"], small["bound_ms"], PATH_P))
+        small, (small_other,) = timed(*max(small_inputs, key=size),
+                                      (p, other_p))
+        small["ms_p%g" % OTHER_P] = small_other
+        say("time", "gem_l2n, %s path, %s, small-batch launch at %s: %.4f "
+            "ms (%.0f%% of bound %.4f ms) at p = %g, %.4f ms (%.0f%%) at p = "
+            "%g"
+            % (tag, str(dtype)[6:], tuple(small["shape"]), small["ms"],
+               100 * small["bound_share"], small["bound_ms"], PATH_P,
+               small_other, 100 * small["bound_ms"] / small_other, OTHER_P))
     return {"max_abs_err": err, "timed": largest, "small_batch": small}
 
 
@@ -476,8 +499,9 @@ def clahe_against_plain(clahe, vals, aux, grid, what):
 
 def offset_copy(t):
     """A contiguous copy of ``t`` 4 bytes past a 16-byte boundary."""
-    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
-    shifted = flat[1:].view(t.shape)
+    cells = 4 // t.element_size()
+    flat = torch.empty(t.numel() + cells, dtype=t.dtype, device=t.device)
+    shifted = flat[cells:].view(t.shape)
     shifted.copy_(t)
     check(shifted.is_contiguous() and shifted.data_ptr() % 16 == 4,
           "offset view")
@@ -1313,14 +1337,15 @@ class ChunkRows(list):
         super().append(item)
 
 
-def bf16_path_phase(tag, make_extractor, image_sets, f32, pooling_kernel,
-                    device):
-    """Phase 11 on one eval path: with ``compute_dtype: bfloat16`` (a warm-up
-    that records the pool's inputs, then a timed run: images/s, peak
-    memory, each chunk's least row cosine and the top-10 ranks against the
-    float32 run ``f32`` of the path's phase), then with ``auto``: the guard
-    must run once, on the first chunk, and a rejection must ship float32
-    descriptors."""
+def half_path_phase(tag, make_extractor, image_sets, f32, pooling_kernel,
+                    device, mode="bfloat16"):
+    """Phase 11 on one eval path: with ``compute_dtype`` ``mode``, bfloat16
+    or float16 (a warm-up that records the pool's inputs, then a timed run:
+    images/s, peak memory, each chunk's least row cosine and the top-10
+    ranks against the float32 run ``f32`` of the path's phase; the kernel's
+    instantiation for the mode must launch once per chunk x scale), then,
+    for bfloat16, with ``auto``: the guard must run once, on the first
+    chunk, and a rejection must ship float32 descriptors."""
     from mdir_tpu_torch.ops import dtypes as dtype_policy
     from mdir_tpu_torch.ops.ranking import rank_database
 
@@ -1339,40 +1364,48 @@ def bf16_path_phase(tag, make_extractor, image_sets, f32, pooling_kernel,
             np.ascontiguousarray(v)).to(device) for v in outs)).cpu().numpy()
         return outs, chunks, reports, ranks
 
+    dtype = getattr(torch, mode)
+    label = {"bfloat16": "bf16", "float16": "fp16"}[mode]
     gem_in, dtypes = [], []
     with mock.patch.object(pooling_kernel, "gem_l2n", recording_pool(
             pooling_kernel.gem_l2n, gem_in, dtypes)):
-        run("bfloat16")  # warm-up: bf16 cuDNN plans, allocator
-    check(set(dtypes) == {torch.bfloat16}, ("bf16 pool inputs", set(dtypes)))
+        run(mode)  # warm-up: 16-bit cuDNN plans, allocator
+    check(set(dtypes) == {dtype}, ("%s pool inputs" % mode, set(dtypes)))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     pooling_kernel.reset_launches()
     t = time.perf_counter()
-    outs, chunks, reports, ranks = run("bfloat16")
+    outs, chunks, reports, ranks = run(mode)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t
     launches = pooling_kernel.launches
     peak = torch.cuda.max_memory_allocated()
     n_images = sum(len(images) for images in image_sets)
-    check(all(r is None for r in reports), "explicit bfloat16 is unguarded")
+    check(all(r is None for r in reports), "explicit %s is unguarded" % mode)
     for v in outs:
         check(v.dtype == np.float32 and np.isfinite(v).all(),
               "finite float32 descriptors")
         norms = np.linalg.norm(v, axis=0)
         check(np.abs(norms - 1).max() < 1e-4, ("unit norms", norms))
     check(launches == len(chunks) * len(SCALES) > 0,
-          ("bf16 gem_l2n launches == chunks x scales", launches, chunks))
+          ("%s gem_l2n launches == chunks x scales" % mode, launches,
+           chunks))
     cosines = [float(dtype_policy.row_cosines(
         outs[k][:, idx].T, f32["out"][k][:, idx].T).min())
         for k, idx in chunks]
     agree = float((ranks[:10] == f32["ranks"][:10]).mean())
-    say("bf16", "%s, bfloat16: %d images in %d chunks, %.2f s, %.1f "
-        "images/s (float32 %.1f), peak %.2f GB (float32 %.2f); least row "
-        "cosine per chunk against float32 %s; top-10 ranks equal to "
-        "float32's at %.1f%% of places; gem_l2n launches %d"
-        % (tag, n_images, len(chunks), seconds, n_images / seconds,
+    say(label, "%s, %s: %d images in %d chunks, %.2f s, %.1f images/s "
+        "(float32 %.1f), peak %.2f GB (float32 %.2f); least row cosine per "
+        "chunk against float32 %s; top-10 ranks equal to float32's at %.1f%% "
+        "of places; gem_l2n launches %d"
+        % (tag, mode, n_images, len(chunks), seconds, n_images / seconds,
            f32["images_per_s"], peak / 1e9, f32["peak"] / 1e9,
            ["%.6f" % c for c in cosines], 100 * agree, launches))
+    run_stats = {"gem_inputs": gem_in, "launches": launches,
+                 "images_per_s": n_images / seconds, "peak": peak,
+                 "min_cosine": min(cosines), "top10_agree": agree}
+    if mode != "bfloat16":  # auto's fast dtype is bfloat16
+        return run_stats
 
     outs_auto, _, reports, _ = run("auto")
     guard = reports[0]
@@ -1387,10 +1420,7 @@ def bf16_path_phase(tag, make_extractor, image_sets, f32, pooling_kernel,
         % (tag, "accepted bfloat16" if guard["ok"]
            else "rejected it: float32 from there on", guard["min_cosine"],
            dtype_policy.GUARD_MIN_COSINE, err))
-    return {"gem_inputs": gem_in, "launches": launches,
-            "images_per_s": n_images / seconds, "peak": peak,
-            "min_cosine": min(cosines), "top10_agree": agree,
-            "guard": guard}
+    return dict(run_stats, guard=guard)
 
 
 def bf16_train_steps(device, dataset, state):
@@ -1500,14 +1530,21 @@ def main():
         max_err = max(max_err, err)
         say("kernel", "gem_l2n %s ragged, p in %s: max |kernel - plain| "
             "%.2e" % (shape, P_VALUES, err))
-    bf16_err = 0.0
-    for shape in BF16_KERNEL_SHAPES:
-        x = torch.rand(shape, generator=gen).to(device, torch.bfloat16)
-        valid = ragged_valid(gen, shape[0], shape[2], shape[3], device)
-        bf16_err = max(bf16_err, kernel_against_plain(
-            pooling_kernel, gem_l2n_plain, x, valid))
-    say("kernel", "gem_l2n on bfloat16 maps %s ragged, p in %s: max |kernel "
-        "- plain| %.2e" % (BF16_KERNEL_SHAPES, P_VALUES, bf16_err))
+    half_err = {}
+    for dtype in HALF_TYPES:
+        half_err[dtype] = 0.0
+        for shape in BF16_KERNEL_SHAPES:
+            x = torch.rand(shape, generator=gen).to(device, dtype)
+            valid = ragged_valid(gen, shape[0], shape[2], shape[3], device)
+            half_err[dtype] = max(
+                half_err[dtype],
+                kernel_against_plain(pooling_kernel, gem_l2n_plain, x, valid),
+                kernel_against_plain(pooling_kernel, gem_l2n_plain,
+                                     offset_copy(x), valid))
+        say("kernel", "gem_l2n on %s maps %s ragged, and on views 4 bytes "
+            "past a 16-byte boundary, p in %s: max |kernel - plain| %.2e"
+            % (str(dtype)[6:], BF16_KERNEL_SHAPES, P_VALUES,
+               half_err[dtype]))
     head_gradients_phase(device, gen)
 
     # 4. the main path
@@ -1627,13 +1664,13 @@ def main():
 
     image_sets = (db, queries)
     bf16 = {
-        "ResNet101": bf16_path_phase(
+        "ResNet101": half_path_phase(
             "ResNet101-GeM", lambda mode: network_extractor(
                 with_compute_dtype(network, mode), transform), image_sets,
             {"out": (vecs, qvecs), "ranks": ranks,
              "images_per_s": n_images / seconds, "peak": peak},
             pooling_kernel, device),
-        "VGG16 CLAHE": bf16_path_phase(
+        "VGG16 CLAHE": half_path_phase(
             "VGG16-GeM lab CLAHE", lambda mode: network_extractor(
                 with_compute_dtype(path["network"], mode),
                 path["transform"]), image_sets, path, pooling_kernel,
@@ -1646,13 +1683,24 @@ def main():
                                                         mode)
         return ComposedExtractor(composition_nets[mode], composed["mean_std"])
 
-    bf16["U-Net VGG16"] = bf16_path_phase(
+    bf16["U-Net VGG16"] = half_path_phase(
         "U-Net jointly N/D", composed_extractor, image_sets, composed,
         pooling_kernel, device)
-    bf16_pools = {tag: gem_path_phase(tag + " bf16", pooling_kernel,
-                                      gem_l2n_plain, run["gem_inputs"], gen,
-                                      device, torch.bfloat16)
-                  for tag, run in bf16.items()}
+    # the VGG16 lab CLAHE path in float16 (forced, unguarded: the JAX
+    # package sets no bar for it, so its cosine is a finding, not a gate)
+    f16 = half_path_phase(
+        "VGG16-GeM lab CLAHE", lambda mode: network_extractor(
+            with_compute_dtype(path["network"], mode), path["transform"]),
+        image_sets, path, pooling_kernel, device, mode="float16")
+    # both 16-bit kernels at every map the three bf16 paths gave the pool,
+    # and the float16 kernel at the float16 path's own maps
+    half_pools = {(tag, dtype): gem_path_phase(
+        tag + " bf16", pooling_kernel, gem_l2n_plain, run["gem_inputs"],
+        gen, device, dtype) for tag, run in bf16.items()
+        for dtype in HALF_TYPES}
+    f16_pool = gem_path_phase("VGG16 CLAHE fp16", pooling_kernel,
+                              gem_l2n_plain, f16["gem_inputs"], gen, device,
+                              torch.float16)
     sources = {"lab_n": ("mdir_tpu_torch/csrc/lab_n.cu",
                          "mdir_tpu/ops/lab_trilinear.py:493",
                          ["mdir_tpu/ops/lab_trilinear.py:359"],
@@ -1691,29 +1739,51 @@ def main():
     for entry in kernels:
         entry["train_path_launches"] = trained["launches"][entry["name"]]
         entry.setdefault("composition_path_launches", 0)
+
+    # the 16-bit-input instantiations of the same source (the train step
+    # pools under autograd, so neither runs there). Each entry's top-level
+    # times are those of its launches' path: bf16's the bf16 ResNet path's
+    # maps, float16's the float16 VGG16 CLAHE path's.
+    def half_entry(dtype, launches, pool, err):
+        return {
+            "name": "gem_l2n_" + {torch.bfloat16: "bf16",
+                                  torch.float16: "f16"}[dtype],
+            "route": "cuda", "source": "mdir_tpu_torch/csrc/gem_l2n.cu",
+            "replaces": "mdir_tpu/ops/pooling_pallas.py:59",
+            "launches": launches, "max_abs_err": err, **pool["timed"],
+            "library_ms": None, "small_batch": pool["small_batch"],
+            "train_path_launches": {"mining": 0, "train_step": 0}}
+
+    def path_times(pool):
+        return dict(pool["timed"], small_batch=pool["small_batch"])
+
+    bf16_pools = {tag: half_pools[(tag, torch.bfloat16)] for tag in bf16}
+    bf16_entry = half_entry(
+        torch.bfloat16, bf16["ResNet101"]["launches"], bf16_pools["ResNet101"],
+        max([half_err[torch.bfloat16]]
+            + [run["max_abs_err"] for run in bf16_pools.values()]))
+    bf16_entry.update(
+        clahe_path_launches=bf16["VGG16 CLAHE"]["launches"],
+        clahe_path=path_times(bf16_pools["VGG16 CLAHE"]),
+        composition_path_launches=bf16["U-Net VGG16"]["launches"],
+        composition_path=path_times(bf16_pools["U-Net VGG16"]))
+    # float16 runs on the VGG16 CLAHE path only; its kernel is also held
+    # and timed at the bf16 paths' maps, which no float16 path launches
+    f16_off = {tag: half_pools[(tag, torch.float16)] for tag in bf16}
+    f16_entry = half_entry(
+        torch.float16, f16["launches"], f16_pool,
+        max([half_err[torch.float16], f16_pool["max_abs_err"]]
+            + [run["max_abs_err"] for run in f16_off.values()]))
+    f16_entry.update(
+        path="VGG16-GeM lab CLAHE, compute_dtype float16",
+        min_cosine_vs_float32=f16["min_cosine"],
+        images_per_s=f16["images_per_s"], composition_path_launches=0,
+        off_path={tag + " bf16 maps": path_times(run)
+                  for tag, run in f16_off.items()})
+    kernels[1:1] = [bf16_entry, f16_entry]
+    for entry in kernels:
         if entry["name"] in REDESIGNED:
             entry["redesigned"] = REDESIGNED[entry["name"]]
-    # the bf16-input instantiation of the same source; its launches are
-    # the bf16 ResNet path's (the train step pools under autograd)
-    resnet_bf16 = bf16_pools["ResNet101"]
-    kernels.insert(1, {
-        "name": "gem_l2n_bf16", "route": "cuda",
-        "source": "mdir_tpu_torch/csrc/gem_l2n.cu",
-        "replaces": "mdir_tpu/ops/pooling_pallas.py:59",
-        "launches": bf16["ResNet101"]["launches"],
-        "max_abs_err": max([bf16_err] + [run["max_abs_err"]
-                                         for run in bf16_pools.values()]),
-        **resnet_bf16["timed"], "library_ms": None,
-        "small_batch": resnet_bf16["small_batch"],
-        "clahe_path_launches": bf16["VGG16 CLAHE"]["launches"],
-        "clahe_path": dict(bf16_pools["VGG16 CLAHE"]["timed"],
-                           small_batch=bf16_pools["VGG16 CLAHE"][
-                               "small_batch"]),
-        "composition_path_launches": bf16["U-Net VGG16"]["launches"],
-        "composition_path": dict(bf16_pools["U-Net VGG16"]["timed"],
-                                 small_batch=bf16_pools["U-Net VGG16"][
-                                     "small_batch"]),
-        "train_path_launches": {"mining": 0, "train_step": 0}})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -21,8 +21,8 @@ def resolve_device(device="cuda"):
 
 def check_compute_dtype(dtype):
     """Raise on a ``compute_dtype`` the port does not know. float32 runs
-    with TF32 off; ``auto`` and ``bfloat16`` resolve in
+    with TF32 off; ``auto``, ``bfloat16`` and ``float16`` resolve in
     ``ops.dtypes.resolve_compute_dtype``."""
-    if dtype not in (None, "auto", "float32", "f32", "bfloat16"):
-        raise ValueError("unknown compute_dtype %r (auto, float32 or "
-                         "bfloat16)" % (dtype,))
+    if dtype not in (None, "auto", "float32", "f32", "bfloat16", "float16"):
+        raise ValueError("unknown compute_dtype %r (auto, float32, bfloat16 "
+                         "or float16)" % (dtype,))

@@ -25,7 +25,7 @@ import sys
 
 from .config.overlay import load_scenario
 from .stages.validate import validate
-from .tools.utils import get_data_root, validate_hash
+from .tools.utils import resolve_artifact
 
 EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "examples", "iccv19")
@@ -35,19 +35,6 @@ SCORES = {
     "247tokyo1k/validation/score:ap_avg.4": "247tokyo.1k",
 }
 _URL_KEYS = ("path", "whitening")
-
-
-def resolve_artifact(url, artifacts=None):
-    """The local, hash-checked file that stands for ``url``."""
-    directory = artifacts or os.path.join(get_data_root(), "networks")
-    path = os.path.join(directory, os.path.basename(url))
-    if not os.path.isfile(path):
-        raise FileNotFoundError(
-            "%s is not on disk and the port does not download: put it at %s"
-            % (url, path))
-    with open(path, "rb") as handle:
-        validate_hash(handle.read(), path)
-    return path
 
 
 def resolve_urls(node, artifacts=None):

@@ -149,6 +149,21 @@ class FakeBatch(Wrapper):
         return torch.stack([v.reshape(-1) for v in tensor], dim=1)
 
 
+class CirFakeTupleBatch(FakeBatch):
+    """Flatten a two-level tuple list into one image list (the loss's
+    layout); ``meta`` is the tuple length, False for anything else."""
+
+    def preprocess(self, tensor, _model):
+        if not isinstance(tensor, list) or not isinstance(tensor[0], list):
+            return tensor, False
+        acc = []
+        meta = len(tensor[0])
+        for tpl in tensor:
+            assert meta == len(tpl)
+            acc += tpl
+        return acc, meta
+
+
 class CirtorchWhiten(Wrapper):
     """Learned whitening P[:dims] (x - m) + L2, parameters from a pkl."""
 
@@ -171,10 +186,7 @@ WRAPPERS_LABELS = {
     "reflectpad_divisible": ReflectPadMakeDivisible,
     "cirmultiscale": CirMultiscaleAggregation,
     "fakebatch": FakeBatch,
-    # The train wrapper spec of the CirNetwork scenarios: the train step runs
-    # tuples itself (learning/train_step.py), so on the per-image path this
-    # is the plain fakebatch.
-    "cirfaketuplebatch": FakeBatch,
+    "cirfaketuplebatch": CirFakeTupleBatch,
     "cirwhiten": CirtorchWhiten,
 }
 

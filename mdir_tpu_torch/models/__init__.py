@@ -4,8 +4,10 @@ autoencoders and the ``cirnet`` retrieval nets.
 
 ``initialize_model`` takes the params dict of ``mdir_tpu.models``
 (``architecture`` key plus the factory's keys) and a ``device``. Weights are
-random from an explicit seed; nothing is downloaded, so ``pretrained: true``
-raises. A whitening given as a local pkl path fills the ``whiten`` layer.
+random from an explicit seed; ``pretrained: true`` then loads the caffe trunk
+features from ``<data root>/networks/`` (``torch_import.py``; nothing is
+downloaded). A whitening given as a local pkl path fills the ``whiten``
+layer.
 Image-to-image nets carry ``meta`` ``in_channels``/``out_channels``.
 """
 import math
@@ -15,7 +17,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from . import autoencoder, unet
+from . import autoencoder, torch_import, unet
 from .retrievalnet import ImageRetrievalNet
 
 
@@ -58,18 +60,19 @@ def _make_cirnet(device, seed=0, **params):
                 "pretrained"]:
         if key not in params:
             raise ValueError("Key '%s' not in params" % key)
-    if params.pop("pretrained"):
-        raise ValueError("pretrained weights need a download, which the port "
-                         "never does; load a checkpoint instead")
+    pretrained = params.pop("pretrained")
     whitening = params.pop("whitening")
+    architecture = params.pop("cir_architecture")
     model = ImageRetrievalNet(
-        architecture=params.pop("cir_architecture"),
+        architecture=architecture,
         local_whitening=params.pop("local_whitening"),
         pooling=params.pop("pooling"),
         regional=params.pop("regional"),
         whitening=bool(whitening))
     assert not params, params.keys()
     init_weights(model, seed)
+    if pretrained:
+        torch_import.load_pretrained_features(model, architecture)
     if isinstance(whitening, str):
         load_whitening_pkl(model, whitening)
     model.meta["whitening"] = whitening

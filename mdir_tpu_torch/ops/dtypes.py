@@ -12,7 +12,8 @@ returned and the process stays in float32 for that module.
 Selection (yaml: ``network: runtime: compute_dtype``):
 
 * ``float32`` (or ``f32``, or no key) -- float32, no guard;
-* ``bfloat16`` -- forced, no guard;
+* ``bfloat16`` or ``float16`` -- forced, no guard (as the JAX package
+  passes any other name through to ``astype``, unguarded);
 * ``auto`` -- bfloat16 with the guard on a CUDA device, float32 on the CPU.
 
 The port reads no environment variable: the bars and the re-arm period are
@@ -39,6 +40,9 @@ TRAIN_GUARD_LOSS_RTOL = 0.05
 #: the training guard runs again every this many steps (0: first step only)
 TRAIN_GUARD_REARM = 100
 
+#: the fast dtypes a runtime may force
+_FORCED = {"bfloat16": torch.bfloat16, "float16": torch.float16}
+
 #: per-process guard verdicts, keyed by (kind, id(module)): True = bfloat16
 #: validated. ``record_guard_decision`` evicts an entry when its module is
 #: garbage-collected, so a recycled address never inherits a verdict.
@@ -64,7 +68,7 @@ def resolve_compute_dtype(runtime=None, device="cuda"):
         if not on_accelerator(device):
             return None, False
         return torch.bfloat16, True
-    return torch.bfloat16, False
+    return _FORCED[requested], False
 
 
 def guard_decision(module, kind="extract"):

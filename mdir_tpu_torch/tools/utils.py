@@ -1,5 +1,5 @@
-"""Small shared helpers: data root, parameter merging, paths and the
-artifact hash check."""
+"""Small shared helpers: data root, parameter merging, paths, the artifact
+hash check and the local file of an artifact URL."""
 import copy
 import hashlib
 import os
@@ -42,3 +42,19 @@ def validate_hash(content, path):
     if computed != stored:
         raise ValueError("Computed hash '%s' is not consistent with stored "
                          "hash '%s'" % (computed, stored))
+
+
+def resolve_artifact(url, artifacts=None):
+    """The local, hash-checked file that stands for ``url``:
+    ``<artifacts>/<basename>``, by default ``<data root>/networks/<basename>``
+    (where the JAX package caches what it downloads). Nothing is downloaded:
+    a missing file raises, naming the path to put it at."""
+    directory = artifacts or os.path.join(get_data_root(), "networks")
+    path = os.path.join(directory, os.path.basename(url))
+    if not os.path.isfile(path):
+        raise FileNotFoundError(
+            "%s is not on disk and the port does not download: put it at %s"
+            % (url, path))
+    with open(path, "rb") as handle:
+        validate_hash(handle.read(), path)
+    return path

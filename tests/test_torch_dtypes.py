@@ -56,6 +56,7 @@ from mdir_tpu_torch.optim.criteria import initialize_criterion
 from mdir_tpu_torch.parallel import extract
 
 BF16 = torch.bfloat16
+F16 = torch.float16
 MEAN_STD = ([0.485, 0.456, 0.406], [0.229, 0.224, 0.225])
 SCALES = [1, 1 / np.sqrt(2), 0.5]
 CRITERION = {"loss": "contrastive", "margin": 0.7, "eps": 1e-6}
@@ -112,12 +113,15 @@ def test_policy_resolution():
         assert resolve({"compute_dtype": None}, device) == (None, False)
         assert resolve({"compute_dtype": "bfloat16"}, device) \
             == (BF16, False)
-    for name in ("float16", "bf16", "int8"):
+        assert resolve({"compute_dtype": "float16"}, device) \
+            == (F16, False)
+    for name in ("float8", "bf16", "int8"):
         with pytest.raises(ValueError, match="unknown compute_dtype"):
             resolve({"compute_dtype": name}, "cpu")
         with pytest.raises(ValueError, match="unknown compute_dtype"):
             check_compute_dtype(name)
     check_compute_dtype("bfloat16")  # no longer raises
+    check_compute_dtype("float16")
 
 
 def _alexnet(seed=0):
@@ -365,10 +369,11 @@ def test_train_guard_rearms_and_catches_midrun_drift(rng, accelerator,
     assert len(guarded.guard_reports) == 2
 
 
-def test_train_cast_scopes_to_trunk(rng):
+def test_train_cast_scopes_to_trunk(rng, short_resnets):
     """Only the trunk is cast (every parameter and buffer of ``features``);
     the head's parameters stay float32 and, through ``head_dtype``, take
-    float32 features: the pool's gradient input is float32."""
+    float32 features: the pool's gradient input is float32. On the short
+    ResNet101 (bottleneck blocks and BatchNorm buffers all the same)."""
     network, criterion, batch = _train_fixture(rng, "resnet101")
     model = network.model
     cast = dtype_policy.cast_trunk(model, BF16)
@@ -655,3 +660,124 @@ def test_train_step_bf16_matches_jax(rng):
         cos = float(dtype_policy.row_cosines(flat[a], flat[b]))
         assert cos >= (STEP_MIN_COSINE if a == "port" and b == "jax"
                        else dtype_policy.TRAIN_GUARD_MIN_COSINE), (a, b, cos)
+
+
+# ---- float16: forced, unguarded, through the bf16 seams ---------------------
+
+def _first_conv_and_pool_dtypes(model):
+    """Hooks recording the first conv's input dtype and the pool's input
+    and output dtypes of ``model``."""
+    seen = {"conv": [], "pool_in": [], "pool_out": []}
+    first_conv = next(m for m in model.modules()
+                      if isinstance(m, torch.nn.Conv2d))
+    first_conv.register_forward_pre_hook(
+        lambda module, args: seen["conv"].append(args[0].dtype))
+    model.pool.register_forward_pre_hook(
+        lambda module, args: seen["pool_in"].append(args[0].dtype))
+    model.pool.register_forward_hook(
+        lambda module, args, out: seen["pool_out"].append(out.dtype))
+    return seen
+
+
+def test_float16_extraction_matches_jax(accelerator):
+    """AlexNet-GeM at 64 px, three scales, ``compute_dtype: float16`` in
+    the network's runtime: forced and unguarded even where ``auto`` would
+    guard; the first conv takes float16 at every scale, the pool the
+    trunk's float16 map, and float32 descriptors come out, at cosine
+    >= 0.999 of the JAX package's float16 rows."""
+    jax_model = jax_initialize_model(ALEXNET)
+    port_model = initialize_model(ALEXNET, device="cpu")
+    port_model.load_state_dict(from_jax_variables(
+        jax.tree.map(np.asarray, jax_model.variables)), strict=True)
+    rng = np.random.RandomState(11)
+    arrays = [(rng.rand(*shape, 3) * 255).astype(np.uint8)
+              for shape in ((64, 64), (56, 64))]
+    msp = float(jax_model.pool_p)
+
+    def extractor(compute_dtype):
+        network = CirNetwork(port_model, CirNetwork.NetworkParams(
+            model={}, runtime={"wrappers": {"train": None, "eval": {
+                "0_cirmultiscale": {"scales": SCALES}}},
+                "compute_dtype": compute_dtype}), frozen=True)
+        return extract.network_extractor(network, initialize_transforms(
+            "pil2np | totensor | normalize", MEAN_STD))
+
+    f32_ex = extractor("float32")
+    for i, arr in enumerate(arrays):
+        f32_ex.add(i, arr)
+    f32 = f32_ex.finish(len(arrays))
+    ours_ex = extractor("float16")
+    assert ours_ex.compute_dtype == F16 and not ours_ex.guard_pending
+    seen = _first_conv_and_pool_dtypes(ours_ex.fast_model)
+    theirs, ours = _both(
+        JaxExtractor(jax_model, compute_dtype="float16", scales=SCALES,
+                     msp=msp, max_batch=2, normalize_mean_std=MEAN_STD),
+        ours_ex, arrays)
+    assert seen["conv"] == [F16] * len(SCALES)
+    assert seen["pool_in"] == [F16] * len(SCALES)
+    assert seen["pool_out"] == [torch.float32] * len(SCALES)
+    _hold_parity(theirs, ours, f32)
+
+
+def test_gem_wrapper_takes_float16_on_the_cpu(rng):
+    """On the CPU the float16 wrapper launches nothing and returns the
+    plain version, gem_l2n_plain(x.float()), float32 and bit-equal, for a
+    float16, float32 or Python float p."""
+    x = torch.from_numpy(rng.rand(3, 64, 7, 9).astype(np.float32)).to(F16)
+    valid = torch.tensor([[7, 9], [3, 4], [1, 1]], dtype=torch.int32)
+    for p in (torch.tensor([3.0], dtype=F16), torch.tensor([2.5]), 2.5):
+        before = pooling_kernel.launches
+        out = pooling_kernel.gem_l2n(x, valid, p)
+        assert pooling_kernel.launches == before and out.dtype == torch.float32
+        ref = pooling.gem_l2n_plain(x.float(), valid, torch.as_tensor(
+            p, dtype=torch.float32).reshape(1))
+        torch.testing.assert_close(out, ref, rtol=0, atol=0)
+
+
+def test_composed_extractor_float16_matches_jax(checkpoints):
+    """The composition's ``compute_dtype: float16`` reaches its embedder
+    and translator, as bfloat16 does."""
+    images = [(np.random.RandomState(6).rand(h, w, 3) * 255)
+              .astype(np.uint8) for h, w in ((90, 70), (75, 66))]
+    _, f32_net = _composition(checkpoints, None)
+    f32 = extract.extract_vectors_composed(
+        f32_net, images, None, initialize_transforms(
+            "pil2np | totensor | normalize", [[0.5] * 3, [0.5] * 3]))
+    jax_net, port_net = _composition(checkpoints, "float16")
+    ext = extract.ComposedExtractor(port_net, [[0.5] * 3, [0.5] * 3])
+    assert ext.compute_dtype == F16 and not ext.guard_pending
+    assert all(p.dtype == F16 for m in (ext.translate, ext.embed)
+               for p in m.parameters())
+    for i, img in enumerate(images):
+        ext.add(i, img)
+    ours = ext.finish(len(images))
+    theirs = jax_composed(jax_net, images, None,
+                          jax_tf("pil2np | totensor | normalize",
+                                 [[0.5] * 3, [0.5] * 3]))
+    _hold_parity(theirs, ours, f32)
+
+
+def test_train_step_float16_trunk_float32_head(rng):
+    """``compute_dtype: float16`` on the train step: the trunk runs in
+    float16 from the float32 masters, the head takes float32 features
+    (``head_dtype``), no guard runs, and the step is float32's within the
+    training guard's bars."""
+    network, criterion, batch = _train_fixture(rng)
+    loss_e, grads_e = _step(TrainStep(network, criterion,
+                                      compute_dtype="float32"), batch)
+    fast = TrainStep(network, criterion, compute_dtype="float16")
+    assert fast.compute_dtype == F16 and not fast.guard_pending
+    seen = []
+    model = network.model
+    model.features.register_forward_pre_hook(
+        lambda module, args: seen.append(args[0].dtype))
+    model.pool.register_forward_pre_hook(
+        lambda module, args: seen.append(args[0].dtype))
+    loss_f, grads_f = _step(fast, batch)
+    assert seen[:2] == [F16, torch.float32]
+    assert fast.guard_reports == []
+    assert all(g.dtype == torch.float32 for g in grads_f.values())
+    assert abs(loss_f - loss_e) <= dtype_policy.TRAIN_GUARD_LOSS_RTOL \
+        * abs(loss_e)
+    assert float(dtype_policy.row_cosines(_flat(grads_f), _flat(grads_e))) \
+        >= dtype_policy.TRAIN_GUARD_MIN_COSINE

@@ -107,10 +107,10 @@ MAIN_PATH_SHAPES = [
 def test_gem_launch_geometry(shape):
     n, c, h, w = shape
     g = pooling_kernel.launch_geometry(n, c, h, w)
-    assert g.cluster <= 16
+    assert n * g.blocks <= pooling_kernel.TARGET_BLOCKS + n
     assert g.threads % 32 == 0 and 4 * g.group <= 48 * 1024
     covered = []
-    for block in range(g.cluster):
+    for block in range(g.blocks):
         channels = range(block * g.group, min((block + 1) * g.group, c))
         assert len(channels) > 0  # no empty block
         covered.extend(channels)
@@ -124,20 +124,87 @@ def test_gem_launch_geometry(shape):
     (24, 16, 16), (32, 256, 16), (20, 16, 8), (22, 16, 4), (23, 16, 2),
     (24, 8, 8), (24, 4, 4), (24, 2, 2), (24, False, 2)])
 def test_gem_launch_geometry_bf16(w, alignment, load_bytes):
-    """bfloat16 rows load 16 bytes (8 cells) where the width and the
-    tensor's alignment allow, else 8, 4 or 2 bytes; the channel split is
-    the float32 one."""
+    """16-bit rows (bfloat16 and float16 alike) load 16 bytes (8 cells)
+    where the width and the tensor's alignment allow, else 8, 4 or 2 bytes;
+    the channel split and the threads are the float32 ones, and the ring's
+    stages hold as many bytes as float32's (twice the planes)."""
     g = pooling_kernel.launch_geometry(16, 2048, 32, w, alignment, 2)
+    f32 = pooling_kernel.launch_geometry(16, 2048, 32, w, alignment, 4)
     assert g.load_bytes == load_bytes
-    assert g[:2] + g[3:] == pooling_kernel.launch_geometry(
-        16, 2048, 32, w)[:2] + pooling_kernel.launch_geometry(
-            16, 2048, 32, w)[3:]
+    assert (g.blocks, g.group, g.threads) \
+        == (f32.blocks, f32.group, f32.threads)
+    if f32.stage_planes:
+        assert g.stage_planes == 2 * f32.stage_planes
+
+
+@pytest.mark.parametrize("shape,itemsize,alignment,stage_planes", [
+    ((16, 2048, 32, 24), 2, 16, 8),  # ResNet at scale 1: 1536-byte planes
+    ((16, 2048, 32, 24), 4, 16, 4),
+    ((8, 2048, 24, 32), 2, 256, 8),  # the 8-image launch
+    ((16, 2048, 16, 12), 2, 16, 32),  # scale 1/2: more planes than warps
+    ((16, 512, 64, 48), 2, 16, 2),  # VGG16: fewer planes than warps
+    ((16, 512, 64, 48), 4, 16, 1),
+    ((16, 2048, 23, 17), 2, 16, 0),  # 782-byte planes: walked
+    ((16, 512, 45, 34), 2, 16, 0),
+    ((16, 2048, 32, 24), 2, 8, 0),  # not 16-byte aligned: walked
+    ((16, 2048, 32, 24), 2, False, 0),
+    ((1, 4, 400, 400), 4, 16, 0),  # 640 KB planes: walked
+    ((1, 4, 128, 96), 4, 16, 1),  # 48 KB planes: a stage of one plane
+    ((1, 4, 128, 97), 4, 16, 0),  # just over 48 KB: walked
+])
+def test_gem_bulk_route_geometry(shape, itemsize, alignment, stage_planes):
+    """The bulk route's ring: the largest power of two of planes that fits
+    a stage (at most the block's channels), and none where the tensor is
+    not 16-byte aligned, a plane is not a multiple of 16 bytes or a plane
+    is larger than MAX_PLANE_BYTES (the two-stage ring would not fit)."""
+    n, c, h, w = shape
+    g = pooling_kernel.launch_geometry(n, c, h, w, alignment, itemsize)
+    assert g.stage_planes == stage_planes
+    if stage_planes:
+        stage = stage_planes * h * w * itemsize
+        assert stage <= pooling_kernel.STAGE_BYTES or stage_planes == 1
+        assert h * w * itemsize <= pooling_kernel.MAX_PLANE_BYTES
+        assert stage_planes <= g.group
+        assert stage % 16 == 0
+
+
+@pytest.mark.parametrize("n", [1, 3, 8, 9, 11, 12, 16])
+def test_gem_launch_fills_the_card(n):
+    """At any batch the launch puts about two blocks on each of the 132 SMs
+    (the 8-image launch of PRs 6-10 had 64 blocks): more than 132, fewer
+    than TARGET_BLOCKS plus one an image."""
+    g = pooling_kernel.launch_geometry(n, 2048, 24, 32, 16, 2)
+    assert 132 < n * g.blocks <= pooling_kernel.TARGET_BLOCKS + n
+    assert g.threads % 32 == 0 and g.threads <= 512
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_gem_wrapper_widens_16_bit_maps_on_cpu(rng, dtype):
+    """On the CPU a 16-bit map (and a 16-bit p) takes the plain version of
+    its exactly widened float32 cells."""
+    x = _nchw(rng.rand(3, 7, 9, 16).astype(np.float32)).to(dtype)
+    valid = torch.tensor([[7, 9], [3, 4], [1, 1]], dtype=torch.int32)
+    before = pooling_kernel.launches
+    out = pooling_kernel.gem_l2n(x, valid, torch.tensor([2.5], dtype=dtype))
+    assert pooling_kernel.launches == before and out.dtype == torch.float32
+    assert torch.equal(out, pooling.gem_l2n_plain(x.float(), valid,
+                                                  torch.tensor([2.5])))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.int32, torch.uint8])
+def test_gem_wrapper_refuses_other_types_on_cpu(dtype):
+    """The wrapper takes what the kernel takes on either device: float64
+    and integer maps are refused, not pooled."""
+    x = torch.ones(2, 8, 4, 4, dtype=dtype)
+    valid = torch.full((2, 2), 4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        pooling_kernel.gem_l2n(x, valid, torch.tensor([3.0]))
 
 
 @pytest.mark.parametrize("c", [1, 9, 1001])
 def test_gem_launch_geometry_odd_channels(c):
     g = pooling_kernel.launch_geometry(1, c, 5, 8)
-    assert (g.cluster - 1) * g.group < c <= g.cluster * g.group
+    assert (g.blocks - 1) * g.group < c <= g.blocks * g.group
     with pytest.raises(ValueError):
         pooling_kernel.launch_geometry(0, c, 5, 8)
 

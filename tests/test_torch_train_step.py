@@ -296,17 +296,41 @@ def test_prepare_batch_pads_each_tuple():
         prepare_batch([images[0][0]], [targets[0]])
 
 
-@pytest.mark.parametrize("runtime", [{"compute_dtype": "float16"},
+@pytest.mark.parametrize("runtime", [{"compute_dtype": "float8"},
                                      {"param_sharding": "zero"}])
 def test_unported_runtime_raises(runtime):
-    """A compute dtype the port does not know, and ZeRO sharding (bfloat16
-    is ported: ``tests/test_torch_dtypes.py``)."""
+    """A compute dtype neither package runs, and ZeRO sharding (bfloat16
+    and float16 are ported: ``tests/test_torch_dtypes.py``)."""
     port_net = port_network()
     port_net.network_params.runtime.update(runtime)
     error, match = (ValueError, "unknown compute_dtype") \
         if "compute_dtype" in runtime else (NotImplementedError, "ROADMAP")
     with pytest.raises(error, match=match):
         TrainStep(port_net, initialize_criterion(CRITERION))
+
+
+@pytest.mark.parametrize("tensor", [
+    [["q0", "p0", "n0"], ["q1", "p1", "n1"]],  # two tuples of three
+    [["q0", "p0"]],  # one pair
+    ["a", "b", "c"],  # a flat list passes through
+    "one image"])
+def test_cir_fake_tuple_batch_flattens_as_jax(tensor):
+    """The train wrapper of the CirNetwork scenarios flattens a two-level
+    tuple list as the JAX package's does: the same list, the same meta."""
+    from mdir_tpu.learning.wrappers import initialize_wrappers as jax_wrappers
+
+    from mdir_tpu_torch.learning.wrappers import (CirFakeTupleBatch,
+                                                  initialize_wrappers)
+
+    ours, = initialize_wrappers("cirfaketuplebatch").wrappers
+    theirs, = jax_wrappers("cirfaketuplebatch").wrappers
+    assert isinstance(ours, CirFakeTupleBatch)
+    assert ours.preprocess(tensor, None) == theirs.preprocess(tensor, None)
+    if isinstance(tensor, list) and isinstance(tensor[0], list):
+        assert ours.preprocess(tensor, None) == (
+            [x for tpl in tensor for x in tpl], len(tensor[0]))
+    else:
+        assert ours.preprocess(tensor, None) == (tensor, False)
 
 
 @pytest.mark.parametrize("weights", ["normal", "normal_p2p", "he_normal"])

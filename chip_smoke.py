@@ -106,12 +106,37 @@ Phases, one line each with its wall time:
      held within 1e-5 relative of their plain versions at every input the
      bf16 runs gave the pool (and the float16 kernel at the float16 run's),
      each also as an offset view, and timed at each path's largest input
-     and its 8-image launch at p = 3 and 2.5 against the bound.
+     and its 8-image launch at p = 3 and 2.5 against the bound;
+ 12. the descriptor-dump and Lw-learning path, in float32, on a whiten set
+     of 64 in-memory images (8 clusters of 8 crops of one colour field,
+     fed through the dataset's ``loader`` hook) and one name without an
+     image: the infer stage's embedding output with the VGG16-GeM lab
+     CLAHE net (scales 1, 2^-1/2, 1/2, image size 1024) from a checkpoint,
+     its rows bit-equal to ``extract_vectors_network`` on the same arrays,
+     a NaN row at the missing name, gem_l2n launched once per chunk x
+     scale and each CLAHE kernel once per chunk (three timed runs, images/s
+     without the network load, which is timed apart); Lw learned on all
+     448 ordered within-cluster pairs (seconds, failed_times, cond(P); 64
+     images span at most 63 of the 512 directions, so the Lw applied is
+     P's leading real rows), applied by the whiten stage and, as a pkl,
+     through ``cirwhiten`` on phase 7's path, both within a statistical
+     rounding bound of host float64 whitening derived from P's
+     conditioning, with equal top-10 ranks, and the stage's apply with
+     TF32 matmuls must fail that bound; the phase-4 ResNet101-GeM saved as an
+     official cirtorch file, converted by ``convert_contained_net`` and
+     loaded, bit-equal to its source on the 40 images, and
+     ``learn_whitening``'s extraction on the 64 arrays (gem_l2n once per
+     chunk x scale) with ``whitenlearn`` over it (both timed); the infer
+     stage's translation of the 64 images by phase 10's P2pUNet through
+     ``StreamingTranslator``, three timed passes with two batches in
+     flight and three with none, of the input shapes and within one level
+     of the per-image path (images/s, the forwards' device time and share
+     of the pass, share of differing values, the phase's peak memory).
 Then one JSON line of kernels (gem_l2n, gem_l2n_bf16 timed at the bf16
 paths' maps, gem_l2n_f16 at the float16 path's, with its times at the bf16
 maps as off-path readings; each redesigned kernel tagged with the PR of
 its redesign; launches on the training and composition paths, mining and
-train step apart), the
+train step apart; and on phase 12's runs, ``dump_path_launches``), the
 nvidia-smi line, and the last line
 {"ok": true, "device": {...}}. Any failure raises (non-zero exit, no last
 line). Without a card, or without the port beside it, it fails at once.
@@ -120,6 +145,7 @@ import sys
 
 sys.dont_write_bytecode = True  # write nothing outside build/mdir_tpu_torch
 
+import copy  # noqa: E402
 import functools  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
@@ -206,6 +232,15 @@ UNET_DATA = {"mean_std": [[0.5] * 3, [0.5] * 3],
 UNET_CHECK_SHAPES = [(1024, 768), (1000, 750), (990, 740)]
 UNET_CHECK_SIDE = 256  # the card-against-CPU U-Net forward
 UNET_RTOL, UNET_ATOL = 1e-4, 1e-5  # batched against per-image
+# phase 12: the descriptor dump and Lw learning (8 clusters of 8 crops,
+# one name without an image, all 448 ordered within-cluster pairs)
+WHITEN_IMAGES = {}  # name -> (H, W, 3) uint8, served by dump_loader
+WHITEN_CLUSTERS, WHITEN_CROPS = 8, 8
+WHITEN_MISSING, WHITEN_MISSING_AT = "absent", 5
+DUMP_REPEATS = 3  # timed infer and translation passes, after a warm one
+F32_EPS = 2.0 ** -24  # float32 unit roundoff
+TF32_EPS = 2.0 ** -11  # TF32's (10 stored mantissa bits)
+ROUNDING_LAMBDA = 1.0  # the statistical rounding bound's lambda
 LAB_OPS_PER_PIXEL = 60
 INTERP_OPS_PER_PIXEL = 22
 LUT_OPS_PER_BIN = 10
@@ -785,22 +820,24 @@ def smoke_loader(path):
     return TRAIN_IMAGES[os.path.basename(path)]
 
 
-def make_train_images(rng):
-    """TRAIN_CLUSTERS smooth colour fields, two crops of each at mixed aspect
-    ratios (longer side <= IMAGE_SIZE, so nothing is resized) with noise."""
+def make_train_images(rng, clusters=TRAIN_CLUSTERS, crops=2,
+                      images=TRAIN_IMAGES):
+    """``clusters`` smooth colour fields, ``crops`` crops of each at mixed
+    aspect ratios (longer side <= IMAGE_SIZE, so nothing is resized) with
+    noise, into ``images`` as im00, im01, ... (cluster-major)."""
     import torch.nn.functional as F
 
     side = IMAGE_SIZE + 256
-    for c in range(TRAIN_CLUSTERS):
+    for c in range(clusters):
         field = F.interpolate(
             torch.from_numpy(rng.rand(1, 3, 6, 8).astype(np.float32)),
             size=(side, side), mode="bilinear",
             align_corners=False)[0].numpy().transpose(1, 2, 0)
-        for k in range(2):
-            h, w = TRAIN_SHAPES[(2 * c + k) % len(TRAIN_SHAPES)]
+        for k in range(crops):
+            h, w = TRAIN_SHAPES[(crops * c + k) % len(TRAIN_SHAPES)]
             y, x = rng.randint(0, side - h), rng.randint(0, side - w)
             img = field[y:y + h, x:x + w] * 255 + rng.randn(h, w, 3) * 8
-            TRAIN_IMAGES["im%02d" % (2 * c + k)] = np.clip(
+            images["im%02d" % (crops * c + k)] = np.clip(
                 img, 0, 255).astype(np.uint8)
 
 
@@ -1485,6 +1522,400 @@ def bf16_train_steps(device, dataset, state):
             "f32_peak": f32_peaks[1]}
 
 
+def dump_loader(path):
+    """Phase 12's dataset loader: its in-memory uint8 images; for a name it
+    has no image of, the OSError that ``pil_loader`` returns for a file
+    that is not there."""
+    name = os.path.basename(path)
+    if name not in WHITEN_IMAGES:
+        return FileNotFoundError(2, "No such file or directory", path)
+    return WHITEN_IMAGES[name]
+
+
+def expected_chunks(shapes):
+    """The chunks the batched extractor runs for images of ``shapes``: one
+    per MAX_BATCH images of a shape bucket, and one for each remainder."""
+    import collections
+
+    from mdir_tpu_torch.parallel import extract
+
+    buckets = collections.Counter(
+        (extract._round_up(h, extract.BUCKET_MULTIPLE),
+         extract._round_up(w, extract.BUCKET_MULTIPLE)) for h, w in shapes)
+    return sum(-(-n // extract.MAX_BATCH) for n in buckets.values())
+
+
+def host_whiten(X, lw):
+    """float64 ``whitenapply`` of D x N columns on the host."""
+    y = lw["P"] @ (np.asarray(X, np.float64) - lw["m"])
+    return y / (np.linalg.norm(y, axis=0, keepdims=True) + 1e-6)
+
+
+def whiten_tolerance(X, lw, unit=F32_EPS, worst=False):
+    """The error a whitening of the columns of X rounded at ``unit`` may
+    have, from its conditioning. Each output is a dot product of length D
+    over P and x - m, so |fl(y_i) - y_i| <= gamma (|P| |x - m|)_i, the
+    rounding of P, m and x included. Higham's worst case has gamma =
+    (D + 2) u (``worst``). With independent roundings the error grows as
+    sqrt(D + 2) u (Higham and Mary's probabilistic bound, gamma = lambda
+    sqrt(D + 2) u); the gate takes lambda = 1, the error's typical scale
+    rather than a guarantee, since a bound that is one (lambda = 8) is
+    loose enough to pass TF32 matmuls here. Normalising y to unit length
+    at most doubles the relative error, so a column may be off by
+    2 gamma || |P| |x - m| || / ||y||, which the cancellation in P (x - m)
+    makes large when P is ill conditioned. The sums of |P| |x - m| and the
+    column norm overstate one element's error again, about 100x here."""
+    Xc = np.asarray(X, np.float64) - lw["m"]
+    terms = lw["P"].shape[1] + 2
+    gamma = (terms if worst else ROUNDING_LAMBDA * np.sqrt(terms)) * unit
+    cancel = np.linalg.norm(np.abs(lw["P"]) @ np.abs(Xc), axis=0) \
+        / np.linalg.norm(lw["P"] @ Xc, axis=0)
+    return float(2 * gamma * cancel.max())
+
+
+def host_ranks(db, queries):
+    """Top-10 database indices per query from float64 scores."""
+    scores = np.asarray(db, np.float64).T @ np.asarray(queries, np.float64)
+    return np.argsort(-scores, axis=0, kind="stable")[:10]
+
+
+def dump_phase(device, db, queries, path, composed, resnet, clahe,
+               lab_trilinear, pooling_kernel):
+    """Phase 12: the descriptor-dump and Lw-learning path -- the infer
+    stage's embedding output, the whiten stages and the learned Lw through
+    ``cirwhiten``, ``cirtorch_format``, and the infer stage's translation.
+    Returns each kernel's launches on the path's runs."""
+    import shutil
+
+    from mdir_tpu_torch import _build
+    from mdir_tpu_torch.data.transforms import initialize_transforms
+    from mdir_tpu_torch.learning import load_network
+    from mdir_tpu_torch.learning.checkpoints import save_state
+    from mdir_tpu_torch.learning.network import CirNetwork
+    from mdir_tpu_torch.ops.ranking import rank_database
+    from mdir_tpu_torch.ops.whitening import whitenapply_rows, whitenlearn
+    from mdir_tpu_torch.parallel.extract import (extract_vectors_network,
+                                                 network_extractor)
+    from mdir_tpu_torch.parallel.translate import (StreamingTranslator,
+                                                   host_u8_image)
+    from mdir_tpu_torch.stages import cirtorch_format, infer, whiten
+
+    root = os.path.join(_build.BUILD_ROOT, "smoke", "dump")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    counts = functools.partial(kernel_counts, clahe, lab_trilinear,
+                               pooling_kernel)
+
+    def reset():
+        pooling_kernel.reset_launches()
+        lab_trilinear.reset_launches()
+        clahe.reset_launches()
+
+    make_train_images(np.random.RandomState(SEED + 12), WHITEN_CLUSTERS,
+                      WHITEN_CROPS, WHITEN_IMAGES)
+    names = sorted(WHITEN_IMAGES)
+    arrays = [WHITEN_IMAGES[name] for name in names]
+    shapes = [a.shape[:2] for a in arrays]
+    listed = list(names)
+    listed.insert(WHITEN_MISSING_AT, WHITEN_MISSING)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # 1. the infer stage, embedding output, of the VGG16-GeM lab CLAHE net
+    vgg = path["network"].model
+    mean_std = [vgg.meta["mean"], vgg.meta["std"]]
+    ckpt = os.path.join(root, "vgg16_clahe.ckpt")
+    save_state(CirNetwork(vgg, CirNetwork.NetworkParams(
+        model=dict(CLAHE_MODEL), runtime={
+            "wrappers": {"train": None, "eval": {
+                "1_cirmultiscale": {"scales": SCALES}}},
+            "data": {"mean_std": mean_std, "transforms": CLAHE_TRANSFORM},
+            **FLOAT32_RUNTIME})).state_dict()["net"], ckpt)
+    params = {
+        "network": {"path": ckpt, "runtime": None},
+        "output": {"inference": {"name": "embedding"}, "debug": False},
+        "data": {"test": {"dataset": {
+            "name": "CirImageList", "image_dir": "", "image_size": IMAGE_SIZE,
+            "ignore_errors": True, "loader": dump_loader}}}}
+    loads = []  # seconds of each run's load_network, timed apart
+
+    def timed_load(*args, **kwargs):
+        t = time.perf_counter()
+        net = load_network(*args, **kwargs)
+        torch.cuda.synchronize()
+        loads.append(time.perf_counter() - t)
+        return net
+
+    infer_s = []
+    with mock.patch.object(infer, "load_network", timed_load):
+        for run in range(DUMP_REPEATS + 1):
+            torch.cuda.synchronize()
+            if run == 1:
+                reset()
+            t = time.perf_counter()
+            _, out_names, vecs = infer.infer(copy.deepcopy(params),
+                                             (list(listed),), device=device)
+            torch.cuda.synchronize()
+            infer_s.append(time.perf_counter() - t)
+            if run == 1:
+                launches = {"infer_embedding": counts()}
+    runs = [(wall, wall - load)
+            for wall, load in zip(infer_s[1:], loads[1:])]
+    chunks = expected_chunks(shapes)
+    missing = np.isnan(vecs).all(axis=1)
+    check(list(out_names) == listed and vecs.shape == (len(listed),
+                                                       CLAHE_DIM),
+          ("infer output", vecs.shape))
+    check(np.flatnonzero(missing).tolist() == [WHITEN_MISSING_AT],
+          ("one NaN row, at the missing name", np.flatnonzero(missing)))
+    vecs = vecs[~missing]
+    check(np.isfinite(vecs).all(), "finite infer rows")
+    check(launches["infer_embedding"]["gem_l2n"] == chunks * len(SCALES)
+          and all(launches["infer_embedding"][name] == chunks
+                  for name in ("lab_n", "clahe_tile_luts", "clahe_interp")),
+          ("infer launches: gem_l2n chunks x scales, the chain chunks",
+           launches["infer_embedding"], chunks))
+    transform = initialize_transforms(CLAHE_TRANSFORM, mean_std)
+    ref = extract_vectors_network(
+        load_network({"path": ckpt, "runtime": None}, device=device),
+        arrays, None, transform)
+    check(np.array_equal(vecs.astype(np.float32), ref.T),
+          ("infer rows vs extract_vectors_network",
+           float(np.abs(vecs - ref.T).max())))
+    say("dump", "infer (embedding) of %d images + 1 missing, VGG16-GeM "
+        "lab CLAHE, scales %s, %d runs after a warm one: %s s, of which "
+        "the network load %s s; without the load %s images/s; launches "
+        "%s for %d chunks (the first timed run); rows bit-equal to "
+        "extract_vectors_network, NaN row at index %d"
+        % (len(names), [round(x, 4) for x in SCALES], DUMP_REPEATS,
+           ["%.3f" % wall for wall, _ in runs],
+           ["%.3f" % load for load in loads[1:]],
+           ["%.1f" % (len(names) / run) for _, run in runs],
+           launches["infer_embedding"], chunks, WHITEN_MISSING_AT))
+
+    # 2. learn Lw, apply it with the whiten stage and through cirwhiten
+    cluster = [name for name in names for _ in range(WHITEN_CROPS - 1)]
+    positives = [other for i, name in enumerate(names)
+                 for other in names[i - i % WHITEN_CROPS:
+                                    i - i % WHITEN_CROPS + WHITEN_CROPS]
+                 if other != name]
+    check(len(cluster) == len(positives) == 448, "448 ordered pairs")
+    t = time.perf_counter()
+    lw_meta, lw = whiten.learn_lw_whitening({}, (names, vecs, cluster,
+                                                 positives))
+    learn_s = time.perf_counter() - t
+    # 64 images span at most 63 directions of the 512: the rows of P past
+    # them are eigenvectors of a zero eigenspace, complex and arbitrary
+    # (numpy's eig), so the Lw applied is P's leading real rows
+    complex_rows = np.flatnonzero(np.abs(np.imag(lw["P"])).max(axis=1) > 0)
+    dims = int(complex_rows[0]) if len(complex_rows) else lw["P"].shape[0]
+    check(dims > 0, "P has real leading rows")
+    applied = {"m": lw["m"], "P": np.ascontiguousarray(np.real(
+        lw["P"][:dims]))}
+    sv = np.linalg.svd(applied["P"], compute_uv=False)
+    lw_path = os.path.join(root, "lw_vgg16_clahe.pkl")
+    with open(lw_path, "wb") as handle:
+        pickle.dump(applied, handle)
+    say("dump", "learn_lw_whitening on %d rows, %d pairs: %.2f s, "
+        "failed_times %d; cond(P) %.3e (all %d rows, real part), %d real "
+        "leading rows applied, cond %.3e"
+        % (len(names), len(cluster), learn_s,
+           lw_meta["stats"]["failed_times"],
+           np.linalg.cond(np.real(lw["P"])), lw["P"].shape[0], dims,
+           sv[0] / sv[-1]))
+    _, _, white = whiten.whiten({}, (applied, names, vecs), device=device)
+    tol = whiten_tolerance(vecs.T, applied)
+    host = host_whiten(vecs.T, applied).T
+    err = float(np.abs(white - host).max())
+    check(err <= tol, ("whiten stage vs host float64", err, tol))
+    tf32 = "not run off the card"
+    if device.type == "cuda":
+        # the gate's control: the stage's apply with TF32 matmuls must fail
+        # it (called below the stage, whose resolve_device turns TF32 off)
+        allowed = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            white_tf32 = whitenapply_rows(*(
+                torch.as_tensor(np.asarray(x, np.float32), device=device)
+                for x in (vecs, applied["m"], applied["P"]))).cpu().numpy()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = allowed
+        err_tf32 = float(np.abs(white_tf32 - host).max())
+        check(err_tf32 > tol, ("a TF32 apply passes the gate", err_tf32,
+                               tol))
+        tf32 = "%.2e (its own bound %.2e), failing it" % (
+            err_tf32, whiten_tolerance(vecs.T, applied, TF32_EPS))
+    say("dump", "whiten stage on the card against host float64: max |diff| "
+        "%.2e, tolerance %.2e from the conditioning (statistical, lambda "
+        "%.0f; worst case %.2e); the apply with TF32 matmuls %s"
+        % (err, tol, ROUNDING_LAMBDA,
+           whiten_tolerance(vecs.T, applied, worst=True), tf32))
+
+    model = path["network"].model
+    out = {}
+    for tag, wrappers in (
+            ("white", {"0_cirwhiten": {"whitening": lw_path,
+                                       "dimensions": None},
+                       "1_cirmultiscale": {"scales": SCALES}}),
+            ("plain", {"1_cirmultiscale": {"scales": SCALES}})):
+        net = CirNetwork(model, CirNetwork.NetworkParams(
+            model=dict(CLAHE_MODEL), runtime={
+                "wrappers": {"train": None, "eval": wrappers},
+                **FLOAT32_RUNTIME}), frozen=True)
+        out[tag] = []
+        for images in (db, queries):
+            extractor = network_extractor(net, path["transform"])
+            for i, img in enumerate(images):
+                extractor.add(i, img)
+            out[tag].append(extractor.finish(len(images)))
+    host = [host_whiten(v, applied) for v in out["plain"]]
+    tol = max(whiten_tolerance(v, applied) for v in out["plain"])
+    err = max(float(np.abs(a - b).max()) for a, b in zip(out["white"], host))
+    check(err <= tol, ("cirwhiten vs host whitenapply", err, tol))
+    card_ranks = rank_database(*(torch.from_numpy(np.ascontiguousarray(v))
+                                 .to(device) for v in out["white"]))
+    check((card_ranks.cpu().numpy()[:10] == host_ranks(*host)).all(),
+          "top-10 ranks, cirwhiten vs host whitenapply")
+    say("dump", "phase 7's path with that Lw (cirwhiten, %d-d) on %d "
+        "images against host float64 whitenapply of its unwhitened "
+        "descriptors: max |diff| %.2e, tolerance %.2e (worst case %.2e); "
+        "top-10 ranks equal"
+        % (dims, len(db) + len(queries), err, tol,
+           max(whiten_tolerance(v, applied, worst=True)
+               for v in out["plain"])))
+
+    # 3. cirtorch_format: the phase-4 ResNet101-GeM as an official file
+    official = os.path.join(root, "resnet101_gem_official.pth")
+    torch.save({"meta": {
+        "architecture": "resnet101", "local_whitening": False,
+        "pooling": "gem", "regional": False, "whitening": False,
+        "mean": resnet["mean_std"][0], "std": resnet["mean_std"][1],
+        "outputdim": 2048, "Lw": None},
+        "state_dict": {k: v.cpu() for k, v
+                       in resnet["model"].state_dict().items()}}, official)
+    converted = os.path.join(root, "resnet101_gem_converted.ckpt")
+    t = time.perf_counter()
+    cirtorch_format.convert_contained_net({"source": official,
+                                           "net": converted}, ())
+    convert_s = time.perf_counter() - t
+    runtime = {"wrappers": "", "data": {"mean_std": resnet["mean_std"],
+               "transforms": "pil2np | totensor | normalize"},
+               **FLOAT32_RUNTIME}
+    nets = [CirNetwork(resnet["model"], CirNetwork.NetworkParams(
+                model=dict(MODEL), runtime=runtime), frozen=True),
+            load_network({"path": converted,
+                          "runtime": dict(FLOAT32_RUNTIME)}, device=device)]
+    descs = []
+    for net in nets:
+        extractor = network_extractor(net, resnet["transform"])
+        for i, img in enumerate(db + queries):
+            extractor.add(i, img)
+        descs.append(extractor.finish(len(db) + len(queries)))
+    check(np.array_equal(*descs),
+          ("converted net vs source", float(np.abs(descs[0]
+                                                   - descs[1]).max())))
+    model, meta, _ = cirtorch_format._load_official(official, device)
+    torch.cuda.synchronize()
+    reset()
+    t = time.perf_counter()
+    wvecs = cirtorch_format._extract(model, meta, arrays, IMAGE_SIZE,
+                                     SCALES)
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - t
+    launches["learn_whitening"] = counts()
+    check(launches["learn_whitening"]["gem_l2n"] == chunks * len(SCALES),
+          ("learn_whitening gem_l2n launches", launches["learn_whitening"],
+           chunks))
+    index = {name: i for i, name in enumerate(names)}
+    t = time.perf_counter()
+    m, P = whitenlearn(wvecs, [index[n] for n in cluster],
+                       [index[n] for n in positives])
+    whitenlearn_s = time.perf_counter() - t
+    check(P.shape == (2048, 2048) and m.shape == (2048, 1),
+          ("whitenlearn of the extraction", P.shape))
+    say("dump", "cirtorch_format: convert_contained_net %.2f s; the "
+        "converted ResNet101-GeM bit-equal to its source on %d images; "
+        "learn_whitening's _extract of %d images at scales %s: %.2f s "
+        "(gem_l2n %d launches = %d chunks x %d), whitenlearn 2048-d %.2f s"
+        % (convert_s, len(db) + len(queries), len(names),
+           [round(x, 4) for x in SCALES], extract_s,
+           launches["learn_whitening"]["gem_l2n"], chunks, len(SCALES),
+           whitenlearn_s))
+
+    # 4. the infer stage's translation: phase 10's P2pUNet, batched
+    translator = composed["network"]["translate"].eval()
+    mean, std = (np.asarray(v, np.float32) for v in UNET_DATA["mean_std"])
+    kept = {}
+
+    def translate(spans, depth):
+        stream = StreamingTranslator(
+            translator, lambda i, inp, res: kept.__setitem__(
+                i, host_u8_image(res[0], mean, std)),
+            mean_std=UNET_DATA["mean_std"], depth=depth)
+        forward = stream.model
+
+        def timed_forward(x):
+            span = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            span[0].record()
+            out = forward(x)
+            span[1].record()
+            spans.append(span)
+            return out
+
+        stream.model = timed_forward
+        for i, img in enumerate(arrays):
+            stream.add(i, img)
+        stream.finish()
+        return stream.batches
+
+    # two batches in flight (the default) and, alternating with them, none
+    # (each batch drained as soon as it is queued): one pass of each warm
+    passes = {2: [], 0: []}  # depth -> [(wall s, forwards' device ms)]
+    for run in range(DUMP_REPEATS + 1):
+        for depth in passes:
+            spans = []
+            torch.cuda.synchronize()
+            if run == 1 and depth == 2:
+                reset()
+            t = time.perf_counter()
+            batches = translate(spans, depth)
+            torch.cuda.synchronize()
+            passes[depth].append((time.perf_counter() - t, sum(
+                a.elapsed_time(b) for a, b in spans)))
+            if run == 1 and depth == 2:
+                launches["translation"] = counts()
+    differ = total = worst = 0
+    for i, img in enumerate(arrays):
+        with torch.no_grad():
+            single = translator((img.astype(np.float32) / 255.0 - mean)
+                                / std)
+        single = host_u8_image(single[0].permute(1, 2, 0).cpu().numpy(),
+                               mean, std)
+        check(kept[i].shape == img.shape == single.shape,
+              ("translated shape", kept[i].shape, img.shape))
+        diff = np.abs(kept[i].astype(np.int16) - single)
+        worst = max(worst, int(diff.max()))
+        differ += int((diff > 0).sum())
+        total += diff.size
+    check(worst <= 1, ("batched vs per-image translation", worst))
+    peak = torch.cuda.max_memory_allocated()
+    for depth, timed in passes.items():
+        say("dump", "translation of %d images at up to %d px, P2pUNet "
+            "(reflectpad_divisible:%d) in %d batches, %d in flight, %d "
+            "passes after a warm one: %s s, %s images/s; the forwards' "
+            "device time (CUDA events) %s ms, %s of the pass"
+            % (len(arrays), IMAGE_SIZE, UNET_DIVISOR, batches, depth,
+               DUMP_REPEATS, ["%.3f" % wall for wall, _ in timed[1:]],
+               ["%.1f" % (len(arrays) / wall) for wall, _ in timed[1:]],
+               ["%.1f" % busy for _, busy in timed[1:]],
+               ["%.1f%%" % (busy / 10.0 / wall) for wall, busy in timed[1:]]))
+    say("dump", "translation against the per-image path: max |diff| %d "
+        "level, %.4f%% of values differ; phase peak %.2f GB"
+        % (worst, 100.0 * differ / total, peak / 1e9))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; it runs on a card only")
@@ -1701,6 +2132,10 @@ def main():
     f16_pool = gem_path_phase("VGG16 CLAHE fp16", pooling_kernel,
                               gem_l2n_plain, f16["gem_inputs"], gen, device,
                               torch.float16)
+    # 12. the descriptor-dump and Lw-learning path
+    dump_launches = dump_phase(device, db, queries, path, composed, {
+        "model": model, "mean_std": (model.meta["mean"], model.meta["std"]),
+        "transform": transform}, clahe, lab_trilinear, pooling_kernel)
     sources = {"lab_n": ("mdir_tpu_torch/csrc/lab_n.cu",
                          "mdir_tpu/ops/lab_trilinear.py:493",
                          ["mdir_tpu/ops/lab_trilinear.py:359"],
@@ -1784,6 +2219,9 @@ def main():
     for entry in kernels:
         if entry["name"] in REDESIGNED:
             entry["redesigned"] = REDESIGNED[entry["name"]]
+        entry["dump_path_launches"] = {
+            run: counted.get(entry["name"], 0)
+            for run, counted in dump_launches.items()}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,2 +1,2 @@
 """Host data: file readers, test and training datasets, the loader,
-transforms and image loading."""
+transforms, image loading and the infer stage's outputs."""

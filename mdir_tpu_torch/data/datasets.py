@@ -1,6 +1,7 @@
-"""Training tuples with per-epoch hard-negative mining, as
-``mdir_tpu/data/datasets.py``'s ``TuplesDataset`` (cirtorch
-``traindataset.py``).
+"""The datasets of ``mdir_tpu/data/datasets.py``: training tuples with
+per-epoch hard-negative mining (``TuplesDataset``, cirtorch
+``traindataset.py``) and the infer stage's image list (``CirImageList``,
+``data/images.ImagesFromList``).
 
 Each epoch ``create_epoch_tuples`` draws the query subset and the negative
 pool from the global numpy RNG in the JAX package's order, extracts the
@@ -28,10 +29,9 @@ import numpy as np
 import torch
 
 from ..ops.ranking import rank_database
-from ..ops.resize import max_side_resize_pil
 from ..parallel.extract import network_extractor
-from ..tools.utils import validate_hash
-from .images import pil_loader
+from ..tools.utils import path_join, validate_hash
+from .images import ImagesFromList, as_uint8, imresize, pil_loader
 from .loaders import DataLoader, collate_tuples
 
 NOT_PORTED = "ROADMAP §1.6"
@@ -42,29 +42,6 @@ def cid2filename(cid, prefix):
     if cid[0] == "/":
         return cid
     return os.path.join(prefix, cid[-2:], cid[-4:-2], cid[-6:-4], cid)
-
-
-def imresize(img, imsize):
-    """Longer side down to ``imsize`` (PIL thumbnail); never enlarges."""
-    if hasattr(img, "thumbnail"):
-        return max_side_resize_pil(img, imsize)
-    if max(img.shape[:2]) > imsize:
-        raise NotImplementedError(
-            "an array of shape %s is larger than image_size %d: shrinking "
-            "it needs PIL; load it as a PIL image or at its final size"
-            % (img.shape, imsize))
-    return img
-
-
-def as_uint8(img):
-    """A loaded image as (H, W, 3) uint8 pixels."""
-    if hasattr(img, "convert"):
-        return np.asarray(img.convert("RGB"), dtype=np.uint8)
-    img = np.asarray(img)
-    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[-1] != 3:
-        raise ValueError("a loader must give RGB images or (H, W, 3) uint8 "
-                         "arrays, not %s %s" % (img.dtype, img.shape))
-    return img
 
 
 class TuplesDataset:
@@ -119,6 +96,8 @@ class TuplesDataset:
     def load(self, index):
         """Image ``index`` loaded and shrunk to ``imsize``."""
         img = self.loader(self.images[index])
+        if isinstance(img, Exception):
+            raise img
         return img if self.imsize is None else imresize(img, self.imsize)
 
     def __getitem__(self, index):
@@ -243,8 +222,23 @@ def cir_tuples_dataset(data, transform, **params):
     return dataset
 
 
+def cir_image_list_dataset(data, transform, **params):
+    """The scenario's ``CirImageList`` section -> ImagesFromList over
+    ``image_dir``'s images (with bounding boxes when ``data`` has them);
+    ``loader`` and ``ignore_errors`` pass through."""
+    images, bbxs = (data[0], None) if len(data) == 1 else data
+    image_dir = params.pop("image_dir")
+    return ImagesFromList(
+        images=[path_join(image_dir, x) for x in images],
+        imsize=params.pop("image_size"),
+        bbxs=bbxs,
+        transform=transform,
+        **params)
+
+
 DATASET_LABELS = {
     "CirTuples": cir_tuples_dataset,
+    "CirImageList": cir_image_list_dataset,
 }
 
 LOADER_DEFAULT_PARAMS = {
@@ -264,8 +258,9 @@ def initialize_dataset(data, stage, transform, params):
     label = params.pop("name")
     if label not in DATASET_LABELS:
         raise NotImplementedError(
-            "dataset %r is not ported yet (the port trains on CirTuples; "
-            "the image-tuple datasets of image-to-image nets: %s)"
+            "dataset %r is not ported yet (the port has CirTuples and "
+            "CirImageList; the image-tuple datasets of image-to-image "
+            "nets: %s)"
             % (label, NOT_PORTED))
     return DATASET_LABELS[label](data, transform=transform, **params)
 

@@ -11,9 +11,19 @@ import numpy as np
 
 
 def default_collate(items):
-    """Stack numpy arrays of one shape; keep other items as lists."""
+    """Stack numpy arrays of one shape; keep other items as lists. Dicts
+    collate per key, so the missing-image ``{}`` sentinel stays ``{}`` in a
+    batch of one; a sentinel beside an image raises."""
     if isinstance(items[0], (tuple, list)):
         return tuple(default_collate(list(x)) for x in zip(*items))
+    if isinstance(items[0], dict):
+        if any(not isinstance(d, dict) or d.keys() != items[0].keys()
+               for d in items[1:]):
+            raise TypeError("cannot collate a mixed batch of dict sentinels "
+                            "and arrays: missing-image sentinels need "
+                            "batch_size 1")
+        return {key: default_collate([d[key] for d in items])
+                for key in items[0]}
     if isinstance(items[0], np.ndarray) \
             and len({x.shape for x in items}) == 1:
         return np.stack(items)

@@ -76,11 +76,11 @@ class Normalize(GenericTransform):
 
 
 class Pil2Numpy(GenericTransform):
-    """PIL -> RGB HWC float32 in [0, 1]."""
+    """PIL image or (H, W, 3) uint8 array -> RGB HWC float32 in [0, 1]."""
 
     def __call__(self, *pics):
-        return [np.array(x.convert("RGB"), dtype=np.float32) / 255.0
-                for x in pics]
+        return [np.array(x.convert("RGB") if hasattr(x, "convert") else x,
+                         dtype=np.float32) / 255.0 for x in pics]
 
 
 class _DeviceChainOnly(GenericTransform):

@@ -32,7 +32,7 @@ import torch
 
 from .. import models as models_lib
 from ..device import resolve_device
-from ..models import weight_init
+from ..models import torch_import, weight_init
 from ..models.convert import from_jax_variables
 from .checkpoints import Checkpoints
 from .resume import require
@@ -71,16 +71,23 @@ def _image_batch(image, device):
     return x.permute(2, 0, 1)[None].contiguous()
 
 
+def _restored_model(model_params, model_state, device):
+    """The model of ``model_params`` with ``model_state`` (flax variables or
+    a torch state dict) loaded. The strict load sets every weight, so the
+    model is built without its ``pretrained`` trunk features: a checkpoint
+    of a net fine-tuned from them loads without the features file."""
+    model_params = dict(model_params)
+    if "pretrained" in model_params:
+        model_params["pretrained"] = False
+    model = models_lib.initialize_model(model_params, device=device)
+    return _restore_weights(model, model_state)
+
+
 def _restore_weights(model, model_state):
     """Load ``model_state`` (flax variables or a torch state dict)."""
-    keys = set(model_state.keys())
-    if keys & {"params", "batch_stats"}:
-        state = from_jax_variables(model_state)
-    else:
-        state = {k: torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v)
-                 else v for k, v in model_state.items()
-                 if not k.endswith("num_batches_tracked")}
-    model.load_state_dict(state, strict=True)
+    if set(model_state.keys()) & {"params", "batch_stats"}:
+        model_state = from_jax_variables(model_state)
+    return torch_import.import_model_state(model, model_state)
 
 
 class SingleNetwork:
@@ -183,9 +190,7 @@ class SingleNetwork:
         stored = checkpoint["network_params"]
         runtime = _inherit_runtime(params.pop("runtime"), stored["runtime"])
         spec = cls.NetworkParams(stored["model"], runtime)
-        model = models_lib.initialize_model(copy.deepcopy(spec.model),
-                                            device=device)
-        _restore_weights(model, checkpoint["model_state"])
+        model = _restored_model(spec.model, checkpoint["model_state"], device)
         params.pop("initialize", None)
         if "model" in params:
             require(params.pop("model") == stored["model"], "model",
@@ -208,9 +213,7 @@ class SingleNetwork:
             raise ValueError("checkpoint holds a %s, not a %s"
                              % (payload["type"], cls.__name__))
         spec = cls.NetworkParams(**copy.deepcopy(payload["network_params"]))
-        model = models_lib.initialize_model(copy.deepcopy(spec.model),
-                                            device=device)
-        _restore_weights(model, payload["model_state"])
+        model = _restored_model(spec.model, payload["model_state"], device)
         if params is not None and not params.get("path"):
             declared = {k: v for k, v in params.items()
                         if k not in ("path", "initialize", "type")}

@@ -1,1 +1,1 @@
-"""Batched multi-scale descriptor extraction."""
+"""Batched multi-scale descriptor extraction and batched translation."""

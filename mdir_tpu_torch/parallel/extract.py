@@ -326,7 +326,8 @@ def _guard_report(fast, exact, ok, kind):
 def extract_vectors_batched(model, arrays, scales=(1,), msp=1.0, whiten=None,
                             bucket_multiple=BUCKET_MULTIPLE,
                             max_batch=MAX_BATCH, normalize_mean_std=None):
-    """Multi-scale descriptors of a list of HWC arrays. Returns (D, N).
+    """Multi-scale descriptors of HWC arrays (a list, or any iterable,
+    consumed as it goes). Returns (D, N).
 
     What the per-image wrapper loop computes: per scale s each image is
     resized bilinearly (exact torch grid), pooled with its valid extent,
@@ -337,9 +338,10 @@ def extract_vectors_batched(model, arrays, scales=(1,), msp=1.0, whiten=None,
         model, scales=scales, msp=msp, whiten=whiten,
         normalize_mean_std=normalize_mean_std,
         bucket_multiple=bucket_multiple, max_batch=max_batch)
-    for i, arr in enumerate(arrays):
-        extractor.add(i, arr)
-    return extractor.finish(len(arrays))
+    n = 0
+    for n, arr in enumerate(arrays, 1):
+        extractor.add(n - 1, arr)
+    return extractor.finish(n)
 
 
 def _has_photometric_step(transform):
@@ -636,38 +638,37 @@ def _composable(network):
         and not meta["regional"]
 
 
-def _decoded(images, image_size, bbxs, transform, uint8):
+def _decoded(images, image_size, bbxs, transform, uint8, loader=None):
     """The images as arrays: uint8 pixels, or the host transform's output.
-    ``images`` is a list of paths or of decoded uint8 HWC arrays (those
-    need ``uint8``)."""
-    from ..data.images import ImagesFromList
+    ``images`` is a list of paths, decoded by ``loader`` (by default
+    ``data.images.pil_loader``), or of decoded (H, W, 3) uint8 arrays,
+    taken as they are (no crop, no resize)."""
+    from ..data.images import ImagesFromList, pil_loader
 
     if len(images) and isinstance(images[0], np.ndarray):
-        if not uint8:
-            raise ValueError("array inputs need a plain pil2np | totensor | "
-                             "normalize transform")
-        return iter(images)
+        return iter(images) if uint8 else (transform(a) for a in images)
     dataset = ImagesFromList(images, imsize=image_size, bbxs=bbxs,
-                             transform=None if uint8 else transform)
+                             transform=None if uint8 else transform,
+                             loader=loader or pil_loader)
     return (dataset.uint8(i) if uint8 else dataset[i]
             for i in range(len(dataset)))
 
 
 def extract_vectors_composed(network, images, image_size, transform,
-                             bbxs=None, max_batch=MAX_BATCH):
+                             bbxs=None, max_batch=MAX_BATCH, loader=None):
     """(D, N) descriptors of images (paths, or uint8 HWC arrays) through a
     2-net composition's batched path."""
     mean_std = _plain_ingress(transform)
     extractor = ComposedExtractor(network, normalize_mean_std=mean_std,
                                   max_batch=max_batch)
     for i, arr in enumerate(_decoded(images, image_size, bbxs, transform,
-                                     mean_std is not None)):
+                                     mean_std is not None, loader)):
         extractor.add(i, arr)
     return extractor.finish(len(images))
 
 
 def extract_vectors_per_image(network, images, image_size, transform,
-                              bbxs=None):
+                              bbxs=None, loader=None):
     """(D, N) descriptors by the exact per-image path (JAX
     ``extract.py:980-988``): each image through the host transform, then
     ``network(image)`` with the network's own wrappers."""
@@ -676,33 +677,34 @@ def extract_vectors_per_image(network, images, image_size, transform,
     check_compute_dtype(tail.network_params.runtime.get("compute_dtype"))
     out = np.zeros((network.meta["out_channels"], len(images)), np.float32)
     for i, arr in enumerate(_decoded(images, image_size, bbxs, transform,
-                                     False)):
+                                     False, loader)):
         out[:, i] = network(arr).reshape(-1).cpu().numpy()
     return out
 
 
 def extract_vectors_network(network, images, image_size, transform,
-                            bbxs=None, batch_size=MAX_BATCH):
-    """(D, N) descriptors of image files through ``network``.
+                            bbxs=None, batch_size=MAX_BATCH, loader=None):
+    """(D, N) descriptors of image files (or uint8 HWC arrays) through
+    ``network``.
 
     A 2-net composition takes the composed batched path, a retrieval net
     with the whiten/multiscale wrappers the single-net batched path, and any
-    other network the exact per-image path. Images are decoded here (PIL),
-    cropped to their bounding box and shrunk to ``image_size`` on their
-    longer side.
+    other network the exact per-image path. Files are decoded here by
+    ``loader`` (by default PIL), cropped to their bounding box and shrunk
+    to ``image_size`` on their longer side.
     """
     network.eval()
     if _composable(network):
         return extract_vectors_composed(network, images, image_size,
                                         transform, bbxs=bbxs,
-                                        max_batch=batch_size)
+                                        max_batch=batch_size, loader=loader)
     if hasattr(network, "sequence") or _analyze_wrappers(network) is None \
             or "pooling" not in network.model.meta:
         return extract_vectors_per_image(network, images, image_size,
-                                         transform, bbxs=bbxs)
+                                         transform, bbxs=bbxs, loader=loader)
     extractor = network_extractor(network, transform, batch_size)
     uint8 = extractor.host_dtype == np.uint8
     for i, arr in enumerate(_decoded(images, image_size, bbxs, transform,
-                                     uint8)):
+                                     uint8, loader)):
         extractor.add(i, arr)
     return extractor.finish(len(images))

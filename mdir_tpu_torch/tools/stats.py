@@ -1,13 +1,50 @@
-"""Timing and resource statistics of the train stage, as
-``mdir_tpu/tools/stats.py``: a named-lap stopwatch, cumulative resource
-usage that survives a resume (device memory from
+"""Timing and resource statistics of the stages, as
+``mdir_tpu/tools/stats.py``: a per-item meter, a named-lap stopwatch,
+cumulative resource usage that survives a resume (device memory from
 ``torch.cuda.max_memory_allocated`` on a card) and the code version.
 """
 import os
 import resource
+import sys
 import time
 
 import torch
+
+
+class AverageMeter:
+    """Per-item timing of a stage; progress goes to stderr every
+    ``PRINT_EACH`` items under ``debug`` and at the last item."""
+
+    PRINT_EACH = 10
+
+    def __init__(self, name, total, debug=False):
+        self.name = name
+        self.total = total
+        self.debug = debug
+        self.start = time.time()
+        self.count = 0
+
+    def update(self, iteration):
+        self.count += 1
+        if self.debug and (iteration + 1) % self.PRINT_EACH == 0 \
+                or iteration + 1 == self.total:
+            elapsed = time.time() - self.start
+            per_item = elapsed / self.count
+            remaining = per_item * (self.total - self.count)
+            sys.stderr.write("\r%s %d/%d (%.3fs/batch, %.1f/%.1f min)"
+                             % (self.name, iteration + 1, self.total,
+                                per_item, elapsed / 60,
+                                (elapsed + remaining) / 60))
+            if iteration + 1 == self.total:
+                sys.stderr.write("\n")
+
+    def total_stats(self):
+        elapsed = time.time() - self.start
+        return {
+            "total_time": round(elapsed, 2),
+            "sec_per_item": round(elapsed / max(self.count, 1), 4),
+            "items": self.count,
+        }
 
 
 class StopWatch:

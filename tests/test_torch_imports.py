@@ -261,3 +261,93 @@ def test_composition_runs_without_jax_pil_yaml():
     result = _run(["-c", RUN_COMPOSITION], ROOT)
     assert result.returncode == 0, result.stderr[-3000:]
     assert result.stdout.split("\n")[-2] == "composed 2"
+
+
+RUN_DUMP = """
+import sys
+for name in %r + ("h5py",):
+    sys.modules[name] = None
+import os, pickle, tempfile
+import numpy as np, torch
+from mdir_tpu_torch.learning.checkpoints import save_state
+from mdir_tpu_torch.learning.network import CirNetwork, SingleNetwork
+from mdir_tpu_torch.models import initialize_model
+from mdir_tpu_torch.parallel.translate import StreamingTranslator
+from mdir_tpu_torch.stages import cirtorch_format, infer, whiten
+
+rng = np.random.RandomState(0)
+IMAGES = {"im%%d" %% i: rng.randint(0, 256, (40 + i %% 3 * 8, 48, 3)).astype(
+    np.uint8) for i in range(8)}
+
+
+def load(path):
+    name = os.path.basename(path)
+    return IMAGES[name] if name in IMAGES else FileNotFoundError(path)
+
+
+root = tempfile.mkdtemp()
+model = {"architecture": "cirnet", "cir_architecture": "alexnet",
+         "local_whitening": False, "pooling": "gem", "regional": False,
+         "whitening": False, "pretrained": False}
+chain = "pil2np | apply_clahe:4:lab:8 | totensor | normalize"
+net = CirNetwork(initialize_model(model, device="cpu"),
+                 CirNetwork.NetworkParams(model=model, runtime={
+                     "wrappers": {"train": None, "eval": {
+                         "0_cirmultiscale": {"scales": True}}},
+                     "data": {"transforms": chain}}))
+save_state(net.state_dict()["net"], os.path.join(root, "net.ckpt"))
+names = sorted(IMAGES) + ["absent"]
+meta, out_names, vecs = infer.infer({
+    "network": {"path": os.path.join(root, "net.ckpt"), "runtime": None},
+    "output": {"inference": {"name": "embedding"}},
+    "data": {"test": {"dataset": {
+        "name": "CirImageList", "image_dir": root, "image_size": 64,
+        "ignore_errors": True, "loader": load}}}}, (names,), device="cpu")
+assert np.isnan(vecs[-1]).all() and np.isfinite(vecs[:-1]).all()
+pairs = [("im%%d" %% i, "im%%d" %% (i + 1)) for i in range(0, 8, 2)]
+_, lw = whiten.learn_lw_whitening({}, (names[:-1], vecs[:-1],
+                                       [q for q, _ in pairs],
+                                       [p for _, p in pairs]))
+assert lw["P"].shape == (256, 256)
+_, _, white = whiten.whiten({"dimensions": 16}, (
+    {"m": np.zeros((256, 1)), "P": np.eye(256)}, names[:-1], vecs[:-1]),
+    device="cpu")
+assert white.shape == (8, 16) and np.isfinite(white).all()
+
+unet = {"architecture": "p2p_unet", "in_channels": 3, "out_channels": 3,
+        "nested_levels": 1}
+translator = SingleNetwork(initialize_model(unet, device="cpu"),
+                           SingleNetwork.NetworkParams(model=unet, runtime={
+                               "wrappers": "reflectpad_divisible:8"}))
+kept = {}
+stream = StreamingTranslator(translator.eval(), lambda i, a, b: kept.update(
+    {i: b}), mean_std=[[0.5] * 3, [0.5] * 3])
+for i, name in enumerate(sorted(IMAGES)):
+    stream.add(i, IMAGES[name])
+stream.finish()
+assert all(kept[i].shape[1:3] == IMAGES[n].shape[:2]
+           for i, n in enumerate(sorted(IMAGES)))
+
+official = os.path.join(root, "official.pth")
+state = initialize_model(model, device="cpu").state_dict()
+torch.save({"state_dict": state, "meta": {
+    "architecture": "alexnet", "pooling": "gem", "whitening": False,
+    "mean": [0.5] * 3, "std": [0.5] * 3, "outputdim": 256}}, official)
+cirtorch_format.convert_contained_net(
+    {"source": official, "net": os.path.join(root, "converted.ckpt")}, ())
+loaded, meta, _ = cirtorch_format._load_official(official, "cpu")
+wvecs = cirtorch_format._extract(loaded, meta, list(IMAGES.values()), 64,
+                                 [1, 0.5])
+print("dumped", vecs.shape[0], len(kept), wvecs.shape[1])
+""" % (BLOCKED,)
+
+
+def test_descriptor_dump_runs_without_jax_pil_h5py():
+    """The descriptor-dump and Lw path as the smoke drives it: the infer
+    stage's embedding output of a lab CLAHE net on images from an in-memory
+    loader (one missing), the whiten stages, the streaming translator and
+    the cirtorch_format conversion and extraction, with JAX, the JAX
+    package, cv2, PIL, h5py, yaml and msgpack blocked."""
+    result = _run(["-c", RUN_DUMP], ROOT)
+    assert result.returncode == 0, result.stderr[-3000:]
+    assert result.stdout.split("\n")[-2] == "dumped 9 8 8"

@@ -131,12 +131,34 @@ Phases, one line each with its wall time:
      ``StreamingTranslator``, three timed passes with two batches in
      flight and three with none, of the input shapes and within one level
      of the per-image path (images/s, the forwards' device time and share
-     of the pass, share of differing values, the phase's peak memory).
+     of the pass, share of differing values, the phase's peak memory);
+ 13. the rest of the photometric chain, in float32, on phase 7's VGG16-GeM
+     (scales 1, 2^-1/2, 1/2, Lw) and the same 40 images: the device chains
+     pil2np | apply_clahe:4:lsh:8 | totensor | normalize, the same in luv,
+     and pil2np | tospace:lab | totensor | normalize. The CLAHE kernels
+     must launch once per chunk on the lsh and luv runs and lab_n once per
+     chunk on the tospace:lab run (and not otherwise), gem_l2n once per
+     chunk x scale; the run with the plain lab and CLAHE versions must give
+     descriptors within 1e-4 and the same top-10 ranks, and every chain
+     bit-equal per chunk; the lsh and luv CLAHE planes of every chunk on
+     the card against the same function on the CPU: lsh bit-equal, luv
+     within one level at a flip rate of at most 1e-4 (set from the
+     readings) and 2 % (the JAX package's runtime-guard bar; the rate is
+     printed). Then two host routes on the same 40 images, the transform
+     on the host with its device steps on the card: pil2np |
+     gamma_equalize:0.5:lab | totensor | normalize and pil2np |
+     tospace:lab | apply_clahe:4:lab:8 | totensor | normalize (lab_n once
+     an image; the second's clahe_u8 once an image, each plane bit-equal
+     to its plain version); the run with the plain versions must give
+     bit-equal transformed images, descriptors within 1e-4 and the same
+     top-10 ranks. Each run prints its seconds, images/s, peak memory,
+     launches and the card's name and power limit.
 Then one JSON line of kernels (gem_l2n, gem_l2n_bf16 timed at the bf16
 paths' maps, gem_l2n_f16 at the float16 path's, with its times at the bf16
 maps as off-path readings; each redesigned kernel tagged with the PR of
 its redesign; launches on the training and composition paths, mining and
-train step apart; and on phase 12's runs, ``dump_path_launches``), the
+train step apart; on phase 12's runs, ``dump_path_launches``; on phase
+13's, ``photometric_path_launches``), the
 nvidia-smi line, and the last line
 {"ok": true, "device": {...}}. Any failure raises (non-zero exit, no last
 line). Without a card, or without the port beside it, it fails at once.
@@ -244,6 +266,12 @@ ROUNDING_LAMBDA = 1.0  # the statistical rounding bound's lambda
 LAB_OPS_PER_PIXEL = 60
 INTERP_OPS_PER_PIXEL = 22
 LUT_OPS_PER_BIN = 10
+# phase 13: the luv CLAHE plane, card against CPU: at most one level, at
+# the JAX package's runtime-guard rate (its preprocess.py:161) and at a bar
+# set from the readings (2.7e-6 of the pixels on an H100 on the smoke's
+# images)
+LUV_FLIP_RATE = 0.02
+LUV_FLIP_READ = 1e-4
 
 T0 = time.perf_counter()
 
@@ -1916,6 +1944,184 @@ def dump_phase(device, db, queries, path, composed, resnet, clahe,
     return launches
 
 
+def photometric_phase(device, db, queries, path, clahe, lab_trilinear,
+                      pooling_kernel, smi):
+    """Phase 13: the rest of the photometric chain -- lsh and luv CLAHE and
+    ``tospace:lab`` as device chains on phase 7's VGG16-GeM, and two host
+    routes (``gamma_equalize``; ``tospace`` before CLAHE). Returns each
+    kernel's launches on each run."""
+    from mdir_tpu_torch.data.transforms import initialize_transforms
+    from mdir_tpu_torch.ops import preprocess
+    from mdir_tpu_torch.ops.ranking import rank_database
+    from mdir_tpu_torch.parallel.extract import network_extractor
+
+    network = path["network"]
+    mean_std = (network.model.meta["mean"], network.model.meta["std"])
+    launches = {}
+
+    def ranks_of(out):
+        vecs, qvecs = (torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                       for v in out)
+        return rank_database(vecs, qvecs).cpu().numpy()
+
+    def run(transform, image_sets, sink=None):
+        """Descriptors of the image sets; ``sink`` gets each chunk's chain
+        (input bucket, output) or, on the host route, each image's
+        transform."""
+        out, chunks = [], 0
+        for images in image_sets:
+            extractor = network_extractor(network, transform)
+            if sink is not None and extractor.chain_fn is not None:
+                chain_fn = extractor.chain_fn
+
+                def recorded(batch, aux, chain_fn=chain_fn):
+                    result = chain_fn(batch, aux)
+                    sink.append((batch.clone(), result.clone()))
+                    return result
+                extractor.chain_fn = recorded
+            host = extractor.host_dtype != np.uint8
+            for i, img in enumerate(images):
+                x = transform(img) if host else img
+                if host and sink is not None:
+                    sink.append(np.asarray(x))
+                extractor.add(i, x)
+            out.append(extractor.finish(len(images)))
+            chunks += extractor.chunks
+        return out, chunks
+
+    def timed(tag, transform, image_sets, sink=None):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for module in (pooling_kernel, lab_trilinear, clahe):
+            module.reset_launches()
+        t = time.perf_counter()
+        out, chunks = run(transform, image_sets, sink)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches[tag] = kernel_counts(clahe, lab_trilinear, pooling_kernel)
+        n = sum(len(images) for images in image_sets)
+        for v in out:
+            check(v.shape[0] == CLAHE_DIM and np.isfinite(v).all(),
+                  (tag, "finite descriptors"))
+            norms = np.linalg.norm(v, axis=0)
+            check(np.abs(norms - 1).max() < 1e-4, (tag, "unit norms"))
+        say("photo", "%s: %d images in %d chunks, %.2f s, %.1f images/s, "
+            "peak %.2f GB; launches %s | %s"
+            % (tag, n, chunks, seconds, n / seconds,
+               torch.cuda.max_memory_allocated() / 1e9, launches[tag], smi))
+        return out, chunks
+
+    # the device chains: CLAHE in lsh and luv, tospace:lab
+    for space in ("lsh", "luv", "tospace:lab"):
+        dsl = "pil2np | tospace:lab | totensor | normalize" \
+            if space == "tospace:lab" \
+            else "pil2np | apply_clahe:4:%s:8 | totensor | normalize" % space
+        transform = initialize_transforms(dsl, mean_std)
+        check(preprocess.chain_from_transform(transform) is not None,
+              (dsl, "lowers to the device chain"))
+        run(transform, (db, queries))  # warm-up
+        chains = []
+        out, chunks = timed(space, transform, (db, queries), chains)
+        counted = launches[space]
+        clahe_runs = 0 if space == "tospace:lab" else chunks
+        check(counted["clahe_tile_luts"] == counted["clahe_interp"]
+              == clahe_runs, (dsl, "CLAHE launches", counted, chunks))
+        check(counted["lab_n"] == (chunks if space == "tospace:lab" else 0),
+              (dsl, "lab_n launches", counted, chunks))
+        check(counted["gem_l2n"] == chunks * len(SCALES) > 0,
+              (dsl, "gem_l2n launches", counted, chunks))
+        plain_chains = []
+        with plain_clahe_kernels(clahe, lab_trilinear):
+            pout, _ = run(transform, (db, queries), plain_chains)
+        check(len(plain_chains) == len(chains) == chunks, "chunks recorded")
+        chain_diff = max(float((a[1] - b[1]).abs().max())
+                         for a, b in zip(chains, plain_chains))
+        check(chain_diff == 0.0, (dsl, "chain vs plain", chain_diff))
+        desc_err = max(np.abs(a - b).max() for a, b in zip(out, pout))
+        check(desc_err <= DESC_ATOL, (dsl, "descriptors vs plain",
+                                      desc_err))
+        check((ranks_of(out)[:10] == ranks_of(pout)[:10]).all(),
+              (dsl, "top-10 ranks vs plain"))
+        say("photo", "%s (%s) against the plain kernels on the card: chain "
+            "max |diff| %.2e, descriptors %.2e, top-10 ranks equal"
+            % (space, dsl, chain_diff, desc_err))
+        if space in ("lsh", "luv"):
+            # the card's plane against the same function on the CPU (the
+            # luv plane's bar is the JAX package's runtime guard's)
+            worst, flips, total = 0, 0, 0
+            for batch, _ in chains:
+                card = preprocess.clahe_plane(batch, space).cpu()
+                cpu = preprocess.clahe_plane(batch.cpu(), space)
+                diff = (card - cpu).abs()
+                worst = max(worst, int(diff.max()))
+                flips += int((diff != 0).sum())
+                total += diff.numel()
+            rate = flips / total
+            if space == "lsh":
+                check(flips == 0, ("lsh plane, card vs CPU", flips))
+            check(worst <= 1 and rate <= LUV_FLIP_RATE
+                  and rate <= LUV_FLIP_READ,
+                  (space, "plane, card vs CPU", worst, rate))
+            say("photo", "%s CLAHE plane, card against CPU on %d pixels: "
+                "max |diff| %d level, flip rate %.3e (bars %.0e, the JAX "
+                "guard's %.0e)" % (space, total, worst, rate, LUV_FLIP_READ,
+                                   LUV_FLIP_RATE))
+
+    # two host routes on the device chains' images: lab_n and clahe_u8
+    # (both CLAHE kernels at batch 1) run on the card image by image; each
+    # route is held against a second run on the plain versions
+    planes = []
+    real_clahe_u8 = clahe.clahe_u8
+
+    def recording_clahe_u8(src, clip_limit=4.0, grid=(8, 8)):
+        planes.append((src.clone(), clip_limit, grid))
+        return real_clahe_u8(src, clip_limit, grid)
+
+    n = len(db) + len(queries)
+    for tag, dsl in (
+            ("host gamma_equalize",
+             "pil2np | gamma_equalize:0.5:lab | totensor | normalize"),
+            ("host tospace, apply_clahe",
+             "pil2np | tospace:lab | apply_clahe:4:lab:8 | totensor | "
+             "normalize")):
+        transform = initialize_transforms(dsl, mean_std)
+        check(preprocess.chain_from_transform(transform) is None,
+              (dsl, "stays on the host"))
+        run(transform, (queries[:2],))  # warm-up
+        del planes[:]
+        images = []
+        with mock.patch.object(clahe, "clahe_u8", recording_clahe_u8):
+            out, _ = timed(tag, transform, (db, queries), images)
+        counted = launches[tag]
+        clahe_runs = n if "apply_clahe" in dsl else 0
+        check(len(planes) == counted["clahe_tile_luts"]
+              == counted["clahe_interp"] == clahe_runs,
+              (dsl, "clahe_u8 calls", len(planes), counted))
+        check(counted["lab_n"] == n, (dsl, "lab_n", counted))
+        for src, clip_limit, grid in planes:
+            got = real_clahe_u8(src, clip_limit, grid)
+            with plain_clahe_kernels(clahe, lab_trilinear):
+                check_equal(got, real_clahe_u8(src, clip_limit, grid),
+                            (dsl, "clahe_u8 vs plain", tuple(src.shape)))
+        plain_images = []
+        with plain_clahe_kernels(clahe, lab_trilinear):
+            pout, _ = run(transform, (db, queries), plain_images)
+        check(len(images) == len(plain_images) == n, "images recorded")
+        image_diff = max(float(np.abs(a - b).max())
+                         for a, b in zip(images, plain_images))
+        check(image_diff == 0.0, (dsl, "transform vs plain", image_diff))
+        desc_err = max(np.abs(a - b).max() for a, b in zip(out, pout))
+        check(desc_err <= DESC_ATOL, (dsl, "descriptors vs plain",
+                                      desc_err))
+        check((ranks_of(out)[:10] == ranks_of(pout)[:10]).all(),
+              (dsl, "top-10 ranks vs plain"))
+        say("photo", "%s (%s) against the plain kernels on the card: "
+            "transformed images max |diff| %.2e, descriptors %.2e, top-10 "
+            "ranks equal; clahe_u8 bit-equal to its plain version on all "
+            "%d planes" % (tag, dsl, image_diff, desc_err, len(planes)))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; it runs on a card only")
@@ -2136,6 +2342,9 @@ def main():
     dump_launches = dump_phase(device, db, queries, path, composed, {
         "model": model, "mean_std": (model.meta["mean"], model.meta["std"]),
         "transform": transform}, clahe, lab_trilinear, pooling_kernel)
+    # 13. the rest of the photometric chain and the host transforms
+    photo_launches = photometric_phase(device, db, queries, path, clahe,
+                                       lab_trilinear, pooling_kernel, smi)
     sources = {"lab_n": ("mdir_tpu_torch/csrc/lab_n.cu",
                          "mdir_tpu/ops/lab_trilinear.py:493",
                          ["mdir_tpu/ops/lab_trilinear.py:359"],
@@ -2222,6 +2431,9 @@ def main():
         entry["dump_path_launches"] = {
             run: counted.get(entry["name"], 0)
             for run, counted in dump_launches.items()}
+        entry["photometric_path_launches"] = {
+            run: counted.get(entry["name"], 0)
+            for run, counted in photo_launches.items()}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -7,17 +7,20 @@ iteration and the mining statistics per epoch. The weight histograms and
 image samples the JAX package logs feed its tensorboard and html report
 (ROADMAP §1.7), which the port does not have: it logs neither.
 
-A photometric transform that lowers to a device chain always runs on the
-card: the dataset's items are raw uint8 (``ops.preprocess.RawChainInput``)
-and the chain runs inside the step; mining extracts through the dataset's
-own transform. A training mesh (``parallel: {data: N}``) raises (ROADMAP
-§1.7).
+A photometric transform that lowers to a device chain (CLAHE in lab, lsh
+or luv, ``tospace``) always runs on the card: the dataset's items are raw
+uint8 (``ops.preprocess.RawChainInput``) and the chain runs inside the step;
+mining extracts through the dataset's own transform. A transform that does
+not lower runs on the host in ``__getitem__``, its device transforms
+(``data.transforms.on_device``) on the network's device. A training mesh
+(``parallel: {data: N}``) raises (ROADMAP §1.7).
 """
 import copy
 
 import torch
 
 from ..data.datasets import TuplesDataset, initialize_dataset_loader
+from ..data.transforms import on_device
 from ..ops.preprocess import RawChainInput, chain_from_transform
 from ..optim.criteria import initialize_criterion
 from ..tools.stats import StopWatch
@@ -123,6 +126,7 @@ class SupervisedEpoch:
     def iterate(self, network, optimizer, logger):
         """Mine, then yield each step's ``{"total": loss}``."""
         loader = self.data_loader
+        on_device(getattr(loader.dataset, "transform", None), network.device)
         stopwatch = StopWatch()
         self._mine_epoch_tuples(network, logger, stopwatch)
         network.train()

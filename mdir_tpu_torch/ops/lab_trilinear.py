@@ -21,7 +21,8 @@ the kernel reads the corners directly, two at a time from the corner-pair
 table of ``_kernel_tables``. On a CPU tensor the wrapper computes
 ``lab_n_plain``; on a CUDA tensor it launches the kernel or raises.
 ``lab_chan``, ``lab_l_u8`` and ``lab_normspace`` derive the chain's planes
-from its output.
+from its output. ``lsh_l_u8`` is the lsh chain's CLAHE plane, plain integer
+PyTorch (no kernel: the JAX package computes it with XLA too).
 
 The node table ``_lab_nodes.npy`` (int16 (33, 33, 33, 3)) is this package's
 own copy of the JAX package's file, byte for byte.
@@ -222,3 +223,16 @@ def lab_normspace(batch_u8):
     ch0 = n[..., :1] * (1.0 / LAB_BASE)
     ab = (n[..., 1:] * (1.0 / 64.0)) / 255.0
     return torch.cat([ch0, ab], dim=-1)
+
+
+def lsh_l_u8_np(rgb_u8):
+    """The plain version of ``lsh_l_u8``: numpy (..., 3) uint8 -> int32."""
+    v = np.asarray(rgb_u8, np.int32)[..., :3]
+    return (v.max(-1) + v.min(-1)) >> 1
+
+
+def lsh_l_u8(batch_u8):
+    """uint8 RGB -> int32 HLS lightness plane, ``(max + min) >> 1``: cv2's
+    float L of u8 / 255 cut to uint8, exactly, for every pair of levels."""
+    v = batch_u8[..., :3].to(torch.int32)
+    return (torch.amax(v, dim=-1) + torch.amin(v, dim=-1)) >> 1

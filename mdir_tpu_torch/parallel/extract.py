@@ -5,12 +5,16 @@ buckets (sides rounded up to ``BUCKET_MULTIPLE``), zero-padded and run as
 batches of up to ``MAX_BATCH``; the trunk masks each image's valid extent so
 a padded image gives what it gives at its own size. Per chunk, on the device:
 uint8 -> /255 -> (x - mean) / std, or the device photometric chain
-(``ops/preprocess.py``: lab lattice, bucketed CLAHE with per-image cv2 tile
-geometry from the host, lab -> rgb, normalize) on the full-resolution
-bucket -> mask -> for each scale an exact per-image bilinear resize
-(host-computed gather grids, torch ``F.interpolate(scale_factor)``
+(``ops/preprocess.py``: the CLAHE plane of lab, lsh or luv, bucketed CLAHE
+with per-image cv2 tile geometry from the host, colorspace conversions,
+normalize) on the full-resolution bucket, or float32 images a host
+transform made -> mask -> for each scale an exact per-image bilinear
+resize (host-computed gather grids, torch ``F.interpolate(scale_factor)``
 coordinates) -> masked trunk -> GeM+L2N kernel -> p-power aggregation over
-scales -> L2 -> optional whitening.
+scales -> L2 -> optional whitening. A transform that does not lower to the
+device chain runs on the host (JAX ``extract.py:945-977``), its device
+steps (``data.transforms.on_device``) on the model's device; so does a
+composition's.
 
 A 2-net composition (a translator, then an embedder) takes its own batched
 path (``ComposedExtractor``, JAX ``extract_vectors_composed``): chunks
@@ -44,6 +48,7 @@ import math
 import numpy as np
 import torch
 
+from ..data.transforms import on_device
 from ..device import check_compute_dtype
 from ..learning.wrappers import (CirMultiscaleAggregation, CirtorchWhiten,
                                  FakeBatch, ReflectPadMakeDivisible)
@@ -344,25 +349,17 @@ def extract_vectors_batched(model, arrays, scales=(1,), msp=1.0, whiten=None,
     return extractor.finish(n)
 
 
-def _has_photometric_step(transform):
-    """Whether ``transform`` has a step that only the device chain runs."""
-    from ..data import transforms as T
-
-    return any(isinstance(t, (T.ApplyClahe, T.AddClaheFromRgb,
-                              T.ToColorspace))
-               for t in getattr(transform, "transforms", None) or ())
-
-
 def network_extractor(network, transform, batch_size=MAX_BATCH):
     """A StreamingExtractor for ``network``'s eval wrappers and ``transform``.
 
     With a plain pil2np|totensor|normalize transform of 3 channels the
     extractor takes uint8 pixels and normalises on the device; with a
-    photometric chain (CLAHE, tospace) it takes uint8 RGB and runs the
-    chain on the device (``ops.preprocess.chain_from_transform``), and a
-    chain that does not lower raises; otherwise it takes float32 arrays
-    that ``transform`` produced on the host. The compute dtype and its guard
-    come from the network's runtime (``ops.dtypes.resolve_compute_dtype``).
+    photometric chain that lowers (``ops.preprocess.chain_from_transform``)
+    it takes uint8 RGB and runs the chain on the device; otherwise it takes
+    the float32 arrays that ``transform`` makes on the host, its device
+    transforms pointed at the model's device (JAX ``extract.py:945-977``).
+    The compute dtype and its guard come from the network's runtime
+    (``ops.dtypes.resolve_compute_dtype``).
     """
     analyzed = _analyze_wrappers(network)
     if analyzed is None:
@@ -373,16 +370,13 @@ def network_extractor(network, transform, batch_size=MAX_BATCH):
     compute_dtype, dtype_guard = dtype_policy.resolve_compute_dtype(
         network.network_params.runtime, model.device)
     mean_std = _plain_normalize_chain(transform)
-    if mean_std is not None and len(mean_std[0]) != 3:
-        mean_std = None
     chain = None
-    if mean_std is None and _has_photometric_step(transform):
+    if mean_std is None:
         chain = preprocess.chain_from_transform(transform)
-        if chain is None:
-            raise NotImplementedError(
-                "transform %r has no device chain, and the port runs CLAHE "
-                "and colorspace steps only there (%s)"
-                % (transform, preprocess.NOT_PORTED))
+    elif len(mean_std[0]) != 3:
+        mean_std = None
+    if mean_std is None and chain is None:
+        on_device(transform, model.device)
     return StreamingExtractor(
         model, scales=scales,
         msp=CirMultiscaleAggregation.msp(model, len(scales)), whiten=whiten,
@@ -393,16 +387,10 @@ def network_extractor(network, transform, batch_size=MAX_BATCH):
 
 def _plain_ingress(transform):
     """(mean, std) when ``transform`` lets 3-channel uint8 pixels travel and
-    be normalised on the device; None for a host transform. A photometric
-    step raises: it runs only as the device chain, which a composition does
-    not take."""
+    be normalised on the device; None for a host transform."""
     mean_std = _plain_normalize_chain(transform)
     if mean_std is not None and len(mean_std[0]) == 3:
         return mean_std
-    if _has_photometric_step(transform):
-        raise NotImplementedError(
-            "transform %r has no host path in the port (%s)"
-            % (transform, preprocess.NOT_PORTED))
     return None
 
 
@@ -661,6 +649,8 @@ def extract_vectors_composed(network, images, image_size, transform,
     mean_std = _plain_ingress(transform)
     extractor = ComposedExtractor(network, normalize_mean_std=mean_std,
                                   max_batch=max_batch)
+    if mean_std is None:
+        on_device(transform, extractor.device)
     for i, arr in enumerate(_decoded(images, image_size, bbxs, transform,
                                      mean_std is not None, loader)):
         extractor.add(i, arr)
@@ -675,6 +665,7 @@ def extract_vectors_per_image(network, images, image_size, transform,
     tail = network.networks[network.sequence[-1]] \
         if hasattr(network, "sequence") else network
     check_compute_dtype(tail.network_params.runtime.get("compute_dtype"))
+    on_device(transform, network.device)
     out = np.zeros((network.meta["out_channels"], len(images)), np.float32)
     for i, arr in enumerate(_decoded(images, image_size, bbxs, transform,
                                      False, loader)):

@@ -16,12 +16,14 @@ takes a batched route:
 * an ``rgb`` output of a translator goes through
   ``parallel/translate.py::StreamingTranslator``.
 
-Anything else runs the per-item loader loop. The dataset's ``loader``
-(default ``data.images.pil_loader``) decodes the images on both batched
-routes. The JAX package sends a dataset with its own ``loader`` down the
-per-item loop; the port cannot, since its per-item loop runs the host
-transform and the port's CLAHE and colorspace steps run only in the device
-chain. The results are the same.
+Anything else runs the per-item loader loop. A transform that does not
+lower to the device chain (a photometric step before a translator, a
+colorspace step before CLAHE) runs on the host, its device transforms
+(``data.transforms.on_device``) on the network's device, on every route.
+The dataset's ``loader`` (default ``data.images.pil_loader``) decodes the
+images on both batched routes. The JAX package sends a dataset with its own
+``loader`` down the per-item loop; the port keeps it on the batched route,
+which gives the same rows.
 """
 import copy
 
@@ -31,7 +33,7 @@ import torch
 from ..data.datasets import initialize_dataset_loader
 from ..data.images import ImagesFromList, pil_loader
 from ..data.outputs import EmbeddingOutput, RgbImageSaver, initialize_output
-from ..data.transforms import initialize_transforms
+from ..data.transforms import initialize_transforms, on_device
 from ..learning import load_network
 from ..parallel.extract import (_composable, _plain_normalize_chain,
                                 extract_vectors_network)
@@ -151,6 +153,8 @@ def _run_translation(network, output, remaining, data_params, dataset,
         output.add(index, inp, out)
         meter.update(index)
 
+    if mean_std is None:
+        on_device(transform, network.device)
     translator = StreamingTranslator(network, deliver, mean_std=mean_std)
     source = ImagesFromList(
         [path_join(image_dir, name) for name in remaining[0]],
@@ -175,6 +179,7 @@ def _run_per_item(network, output, remaining, data_params, meter):
     """The reference's per-item loader loop."""
     loader = initialize_dataset_loader(remaining, "test", data_params,
                                        {"batch_size": 1})
+    on_device(loader.dataset.transform, network.device)
     for i, indata in enumerate(loader):
         if isinstance(indata, dict) and indata == {}:
             output.add(i, None, None)

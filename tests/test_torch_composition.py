@@ -499,3 +499,18 @@ def test_eval_entry_on_synthetic_dataset(checkpoints, data_root, tmp_path,
     with pytest.raises(ValueError, match="hash"):
         port_eval.main(argv + ["--artifacts", str(artifacts)],
                        device="cpu")
+
+
+def test_composition_with_a_photometric_step_matches_jax(networks,
+                                                         image_files):
+    """A CLAHE step before the translator: both packages take the composed
+    batched path with the transform on the host (the JAX package's cv2,
+    the port's device steps on the network's device)."""
+    theirs_net, ours_net = networks
+    dsl = "pil2np | apply_clahe:4:lab:8 | totensor | normalize"
+    ours = extract.extract_vectors_network(
+        ours_net, image_files, 80, initialize_transforms(dsl, MEAN_STD))
+    theirs = jax_extract_network(theirs_net, image_files, 80,
+                                 jax_initialize_transforms(dsl, MEAN_STD))
+    assert ours.shape == theirs.shape == (256, len(image_files))
+    np.testing.assert_allclose(ours, theirs, rtol=RTOL, atol=ATOL)

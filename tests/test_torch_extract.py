@@ -211,11 +211,20 @@ def test_network_extractor_lowers_clahe_or_raises(alexnet_models):
         network, initialize_transforms(CLAHE_DSL, MEAN_STD))
     assert extractor.device_chain.clahe_params == (4.0, (8, 8))
     assert extractor.host_dtype == np.uint8
-    # a colorspace step before CLAHE has no device chain: no host fallback
-    with pytest.raises(NotImplementedError, match="device chain"):
+    # a colorspace step before CLAHE has no device chain: the host route,
+    # its device transforms on the model's device (JAX extract.py:945-977)
+    host_tf = initialize_transforms(
+        "pil2np | tospace:lab | apply_clahe | totensor | normalize",
+        MEAN_STD)
+    extractor = extract.network_extractor(network, host_tf)
+    assert extractor.device_chain is None
+    assert extractor.host_dtype == np.float32
+    assert {t.device for t in host_tf.transforms[1:3]} == {
+        torch.device("cpu")}
+    extractor = extract.network_extractor(network, initialize_transforms(
+        "pil2np | apply_clahe:4:luv | totensor | normalize", MEAN_STD))
+    assert extractor.device_chain.clahe_space == "luv"
+    # hls is no normspace, in either package
+    with pytest.raises(NotImplementedError, match="Colorspace hls"):
         extract.network_extractor(network, initialize_transforms(
-            "pil2np | tospace:lab | apply_clahe | totensor | normalize",
-            MEAN_STD))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        extract.network_extractor(network, initialize_transforms(
-            "pil2np | apply_clahe:4:luv | totensor | normalize", MEAN_STD))
+            "pil2np | apply_clahe:4:hls | totensor | normalize", MEAN_STD))

@@ -351,3 +351,65 @@ def test_descriptor_dump_runs_without_jax_pil_h5py():
     result = _run(["-c", RUN_DUMP], ROOT)
     assert result.returncode == 0, result.stderr[-3000:]
     assert result.stdout.split("\n")[-2] == "dumped 9 8 8"
+
+
+RUN_PHOTOMETRIC = """
+import sys
+for name in %r:
+    sys.modules[name] = None
+import numpy as np, torch
+from mdir_tpu_torch.data import transforms as T
+from mdir_tpu_torch.learning.network import CirNetwork
+from mdir_tpu_torch.models import initialize_model
+from mdir_tpu_torch.ops import clahe, histogram, preprocess
+from mdir_tpu_torch.parallel.extract import network_extractor
+from mdir_tpu_torch.tools import imgtools
+
+mean_std = [[0.485, 0.456, 0.406], [0.229, 0.224, 0.225]]
+rng = np.random.RandomState(0)
+images = [rng.randint(0, 256, s + (3,)).astype(np.uint8)
+          for s in ((40, 48), (33, 45))]
+model = {"architecture": "cirnet", "cir_architecture": "alexnet",
+         "local_whitening": False, "pooling": "gem", "regional": False,
+         "whitening": False, "pretrained": False}
+net = CirNetwork(initialize_model(model, device="cpu"),
+                 CirNetwork.NetworkParams(model=model, runtime={
+                     "wrappers": {"train": None, "eval": {
+                         "0_cirmultiscale": {"scales": False}}}}),
+                 frozen=True)
+routes = []
+for dsl in ("pil2np | apply_clahe:4:lsh:8 | totensor | normalize",
+            "pil2np | apply_clahe:4:luv:8 | tospace:luv | totensor "
+            "| normalize",
+            "pil2np | tospace:lab | apply_clahe:4:lab:8 "
+            "| gamma_equalize:0.5:lsh | match_histogram:eq:luv "
+            "| add_clahe_fromrgb:2:8:lsh | np_chanselect:0:3 | totensor "
+            "| normalize"):
+    transform = T.initialize_transforms(dsl, mean_std)
+    extractor = network_extractor(net, transform)
+    host = extractor.device_chain is None
+    for i, img in enumerate(images):
+        extractor.add(i, transform(img) if host else img)
+    vecs = extractor.finish(len(images))
+    assert vecs.shape == (256, 2) and np.isfinite(vecs).all(), dsl
+    routes.append("host" if host else "device")
+chan = torch.from_numpy(rng.rand(16, 16).astype(np.float32))
+assert torch.isfinite(histogram.channel_gamma_matching_torch(chan, 0.4)).all()
+rgb = imgtools.get_image([None, rng.rand(8, 8, 3).astype(np.float32)],
+                         ([50, 0, 0], [20, 30, 30]),
+                         "pil2np | tospace:lab | totensor | normalize")
+assert rgb.shape == (8, 8, 3) and rgb.dtype == np.uint8
+print(" ".join(routes))
+""" % (BLOCKED,)
+
+
+def test_photometric_paths_run_without_jax_cv2_pil():
+    """lsh and luv CLAHE (the latter before a float tospace) as device
+    chains, and a host route (tospace before CLAHE, the histogram
+    transforms, an appended lsh CLAHE channel, a channel select) through
+    the extractor, the torch gamma solver and the colorspace inversion of
+    the rgb saver, with JAX, the JAX package, cv2, PIL, yaml and msgpack
+    blocked."""
+    result = _run(["-c", RUN_PHOTOMETRIC], ROOT)
+    assert result.returncode == 0, result.stderr[-3000:]
+    assert result.stdout.split("\n")[-2] == "device device host"

@@ -259,6 +259,30 @@ def test_rgb_batched_equals_per_item(files, tmp_path, monkeypatch):
         assert np.abs(a - b).max() <= 1, name
 
 
+@pytest.mark.parametrize("transforms", [
+    "pil2np | apply_clahe:4:lab:8 | totensor | normalize",
+    "pil2np | apply_clahe:2:luv:4 | totensor | normalize"])
+def test_rgb_output_with_a_photometric_step_matches_jax(files, tmp_path,
+                                                        transforms):
+    """A photometric step before the translator runs on the host, in the
+    JAX package on cv2 and in the port with its device steps on the
+    network's device, on both packages' batched route: PNGs within one
+    level of the JAX package's."""
+    def params(side):
+        out = _rgb_params(files, tmp_path / side)
+        out["data"]["test"].update(transforms=transforms,
+                                   mean_std=[[0.5] * 3, [0.5] * 3])
+        return out
+
+    infer(params("ours"), (list(files["rgb"]),), device="cpu")
+    jax_infer(params("theirs"), (list(files["rgb"]),))
+    for name, shape in zip(files["rgb"], RGB_SHAPES):
+        ours, theirs = (_read(tmp_path / side / name)
+                        for side in ("ours", "theirs"))
+        assert ours.shape == theirs.shape == shape + (3,)
+        assert np.abs(ours - theirs).max() <= 1, name
+
+
 @pytest.mark.parametrize("depth", [1, 2, 3])
 def test_translator_depth_keeps_results(depth):
     """Batches kept in flight change when a result is delivered, not what

@@ -278,3 +278,35 @@ def test_validate_stage_with_clahe_matches_jax(alexnet_checkpoint,
     np.testing.assert_array_equal(jax_ranks[0], port_ranks[0])
     for key in keys:
         assert metadata["eval"][key] == reference["eval"][key], key
+
+
+@pytest.mark.parametrize("transforms", [
+    "pil2np | apply_clahe:4:lsh:8 | totensor | normalize",
+    "pil2np | apply_clahe:4:luv:8 | totensor | normalize",
+])
+def test_validate_stage_photometric_matches_jax(alexnet_checkpoint,
+                                                monkeypatch, transforms):
+    """The paper's other CLAHE spaces, lsh and luv, on both packages'
+    device chains, at one scale (the chain is what differs from the lab
+    scenario above): equal metric keys, ranks and mAP."""
+    net_path, whit_path = alexnet_checkpoint
+    jax_ranks = _recording(jax_scores, monkeypatch)
+    port_ranks = _recording(port_scores, monkeypatch)
+
+    def scenario():
+        params = _scenario(net_path, whit_path)
+        params["network"]["runtime"]["wrappers"]["eval"][
+            "1_cirmultiscale"] = {"scales": False}
+        params["validation"]["roxford5k"]["criterion"]["transforms"] = \
+            transforms
+        return params
+
+    reference, = jax_validate(scenario(), ())
+    metadata, = validate(scenario(), (), device="cpu")
+
+    keys = metadata["eval"].keys()
+    assert keys == reference["eval"].keys()
+    assert len(jax_ranks) == len(port_ranks) == 1
+    np.testing.assert_array_equal(jax_ranks[0], port_ranks[0])
+    for key in keys:
+        assert metadata["eval"][key] == reference["eval"][key], key

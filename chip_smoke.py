@@ -153,12 +153,31 @@ Phases, one line each with its wall time:
      bit-equal transformed images, descriptors within 1e-4 and the same
      top-10 ranks. Each run prints its seconds, images/s, peak memory,
      launches and the card's name and power limit.
+ 14. the rest of the eval stack, in float32, on the same 40 images (scales
+     1, 2^-1/2, 1/2, Lw, random weights from the seed): a
+     ResNet101-GeM-Rpool (``regional: true``, resnet101-gem-r's layout)
+     and a densenet121-GeM and a squeezenet1_1-GeM on the plain route, a
+     ResNet101-RMAC on phase 7's lab CLAHE chain. Each net's batched run
+     (region boxes per scale for RMAC and Rpool, R rounded up to 8) must
+     agree with the exact per-image path at native sizes within 1e-4 with
+     the same top-10 ranks; gem_l2n must launch once per chunk x scale on
+     the GeM nets and not on the regional heads (plain PyTorch, as the
+     JAX package pools regions with XLA), the chain kernels once per chunk
+     on the CLAHE run only; the RMAC run's chain must be bit-equal to a
+     run on the plain kernels; the Rpool net must agree with the CPU on 4
+     small inputs; gem_l2n is held against its plain version (and timed)
+     at every map the densenet and squeezenet runs gave it. Then the Rpool
+     net under ``auto``: the guard runs once and its verdict is printed (a
+     rejection must ship float32). Each run prints images/s, peak memory,
+     R per scale, launches and the card's name and power limit.
 Then one JSON line of kernels (gem_l2n, gem_l2n_bf16 timed at the bf16
 paths' maps, gem_l2n_f16 at the float16 path's, with its times at the bf16
 maps as off-path readings; each redesigned kernel tagged with the PR of
 its redesign; launches on the training and composition paths, mining and
 train step apart; on phase 12's runs, ``dump_path_launches``; on phase
-13's, ``photometric_path_launches``), the
+13's, ``photometric_path_launches``; on phase 14's,
+``eval_stack_path_launches``, and gem_l2n's times at the densenet and
+squeezenet maps, ``eval_stack_path``), the
 nvidia-smi line, and the last line
 {"ok": true, "device": {...}}. Any failure raises (non-zero exit, no last
 line). Without a card, or without the port beside it, it fails at once.
@@ -229,6 +248,7 @@ TRAIN_CHECK_SIDE = 256  # longer side of the card-against-CPU step
 LOSS_RTOL, GRAD_MIN_COSINE = 1e-4, 0.9999  # that step's tolerances
 CLAHE_DIM = 512
 CLAHE_TRANSFORM = "pil2np | apply_clahe:4:lab:8 | totensor | normalize"
+PLAIN_TRANSFORM = "pil2np | totensor | normalize"
 LAB_SWEEP_SIDE = 4096  # one (1, 4096, 4096, 3) image holds all 256^3 RGB
 # ragged extents in one (1024, 1024) bucket: non-divisible, divisible,
 # tiny, and a filler slot of the bucket's own shape
@@ -2122,6 +2142,208 @@ def photometric_phase(device, db, queries, path, clahe, lab_trilinear,
     return launches
 
 
+def eval_stack_phase(device, db, queries, gnd, whiten_paths, clahe,
+                     lab_trilinear, pooling_kernel, gem_l2n_plain, gen, smi):
+    """Phase 14: the rest of the eval stack, in float32, on the 40 images
+    (scales 1, 2^-1/2, 1/2, Lw): a ResNet101-GeM-Rpool on the plain route,
+    a ResNet101-RMAC on phase 7's lab CLAHE chain, a densenet121-GeM and a
+    squeezenet1_1-GeM on the plain route; then the Rpool net under
+    ``auto``. Returns each kernel's launches on each net's batched run and
+    gem_l2n's checks and times at the densenet and squeezenet maps."""
+    from mdir_tpu_torch.data.transforms import initialize_transforms
+    from mdir_tpu_torch.learning.network import CirNetwork
+    from mdir_tpu_torch.models import initialize_model
+    from mdir_tpu_torch.ops import dtypes as dtype_policy
+    from mdir_tpu_torch.ops.ranking import compute_map, rank_database
+    from mdir_tpu_torch.parallel import extract
+
+    t_phase = time.perf_counter()
+    n_images = len(db) + len(queries)
+    launches, pools, readings = {}, {}, {}
+
+    def make_net(arch, pooling, regional, where=device):
+        params = dict(MODEL, cir_architecture=arch, pooling=pooling,
+                      regional=regional)
+        model = initialize_model(params, device=where, seed=SEED)
+        return CirNetwork(model, CirNetwork.NetworkParams(
+            model=params, runtime={
+                "wrappers": {"train": None, "eval": {
+                    "0_cirwhiten": {"whitening":
+                                    whiten_paths[model.meta["outputdim"]],
+                                    "dimensions": None},
+                    "1_cirmultiscale": {"scales": SCALES}}},
+                **FLOAT32_RUNTIME}), frozen=True)
+
+    def ranks_of(out):
+        vecs, qvecs = (torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                       for v in out)
+        return rank_database(vecs, qvecs).cpu().numpy()
+
+    def batched(network, transform, image_sets, chains=None, boxes=None):
+        """Descriptors of the image sets through the batched extractor;
+        ``chains`` gets each chunk's chain output, ``boxes`` each chunk's
+        R per scale."""
+        out, chunks = [], 0
+        for images in image_sets:
+            extractor = extract.network_extractor(network, transform)
+            if chains is not None and extractor.chain_fn is not None:
+                chain_fn = extractor.chain_fn
+
+                def recorded(batch, aux, chain_fn=chain_fn):
+                    result = chain_fn(batch, aux)
+                    chains.append(result.clone())
+                    return result
+                extractor.chain_fn = recorded
+            if boxes is not None:
+                region_boxes = extractor.region_boxes
+
+                def counted(*args, region_boxes=region_boxes):
+                    result = region_boxes(*args)
+                    boxes.append([b.shape[1] for b in result])
+                    return result
+                extractor.region_boxes = counted
+            for i, img in enumerate(images):
+                extractor.add(i, img)
+            out.append(extractor.finish(len(images)))
+            chunks += extractor.chunks
+        return out, chunks
+
+    def run_net(tag, network, transform, label, chain=False):
+        """A warm-up, the timed batched run (its launches counted from 0),
+        the exact per-image path, and the gates they share."""
+        dim = network.model.meta["outputdim"]
+        gem_in, boxes = [], []
+        with mock.patch.object(pooling_kernel, "gem_l2n", recording_pool(
+                pooling_kernel.gem_l2n, gem_in)):
+            batched(network, transform, (db, queries), boxes=boxes)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for module in (pooling_kernel, lab_trilinear, clahe):
+            module.reset_launches()
+        chains = [] if chain else None
+        t = time.perf_counter()
+        out, chunks = batched(network, transform, (db, queries), chains)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches[tag] = kernel_counts(clahe, lab_trilinear, pooling_kernel)
+        peak = torch.cuda.max_memory_allocated()
+        ranks = ranks_of(out)
+        for v in out:
+            check(v.shape[0] == dim and np.isfinite(v).all(),
+                  (tag, "finite descriptors"))
+            norms = np.linalg.norm(v, axis=0)
+            check(np.abs(norms - 1).max() < 1e-4, (tag, "unit norms"))
+        regional = network.model.needs_region_boxes
+        counted = launches[tag]
+        check(counted["gem_l2n"] == (0 if regional
+                                     else chunks * len(SCALES)),
+              (tag, "gem_l2n launches", counted, chunks))
+        for name in ("lab_n", "clahe_tile_luts", "clahe_interp"):
+            check(counted[name] == (chunks if chain else 0),
+                  (tag, "%s launches" % name, counted, chunks))
+        r_per_scale = [sorted({r[s] for r in boxes})
+                       for s in range(len(SCALES))] if regional else None
+        if regional:
+            check(len(boxes) == chunks and all(
+                r % 8 == 0 for rs in r_per_scale for r in rs),
+                (tag, "region boxes per chunk", boxes))
+        mean_ap = compute_map(ranks, gnd)[0]
+        say("stack", "%s %d-d, %s, scales %s, Lw: %d images in %d chunks, "
+            "%.2f s, %.1f images/s, peak %.2f GB; R per scale %s; launches "
+            "%s; mAP %.4f | %s"
+            % (tag, dim, label, [round(x, 4) for x in SCALES], n_images,
+               chunks, seconds, n_images / seconds, peak / 1e9, r_per_scale,
+               counted, mean_ap, smi))
+        # the exact per-image path at native sizes
+        t = time.perf_counter()
+        exact = [extract.extract_vectors_per_image(network, images, None,
+                                                   transform)
+                 for images in (db, queries)]
+        exact_s = time.perf_counter() - t
+        err = max(float(np.abs(a - b).max()) for a, b in zip(out, exact))
+        check(err <= DESC_ATOL, (tag, "batched vs per-image", err))
+        check((ranks[:10] == ranks_of(exact)[:10]).all(),
+              (tag, "top-10 ranks vs per-image"))
+        say("stack", "%s: the per-image path at native sizes (%.2f s): max "
+            "|desc diff| %.2e, top-10 ranks equal" % (tag, exact_s, err))
+        readings[tag] = {"images_per_s": n_images / seconds,
+                         "peak_gb": peak / 1e9, "r_per_scale": r_per_scale,
+                         "chunks": chunks, "per_image_err": err}
+        return out, chains, gem_in
+
+    mean_std = ([0.485, 0.456, 0.406], [0.229, 0.224, 0.225])
+    plain = initialize_transforms(PLAIN_TRANSFORM, mean_std)
+    clahe_transform = initialize_transforms(CLAHE_TRANSFORM, mean_std)
+
+    # a. ResNet101-GeM-Rpool (resnet101-gem-r's layout) on the plain route
+    rpool = make_net("resnet101", "gem", True)
+    rpool_out, _, _ = run_net("ResNet101-GeM-Rpool", rpool, plain,
+                              PLAIN_TRANSFORM)
+    small = [db[0][:256, :192], queries[4][:192, :256], db[-1][:200, :240],
+             queries[0][:224, :224]]
+    card, cpu = (batched(net, plain, (small,))[0][0] for net in (
+        rpool, make_net("resnet101", "gem", True, where="cpu")))
+    cross_err = float(np.abs(card - cpu).max())
+    check(cross_err <= DESC_ATOL, ("Rpool, card vs CPU", cross_err))
+    say("stack", "ResNet101-GeM-Rpool, 4 small inputs, card against CPU: "
+        "max |desc diff| %.2e" % cross_err)
+
+    # b. ResNet101-RMAC on the lab CLAHE chain, its chain against plain
+    rmac = make_net("resnet101", "rmac", False)
+    out, chains, _ = run_net("ResNet101-RMAC lab CLAHE", rmac,
+                             clahe_transform, CLAHE_TRANSFORM, chain=True)
+    plain_chains = []
+    with plain_clahe_kernels(clahe, lab_trilinear):
+        pout, _ = batched(rmac, clahe_transform, (db, queries), plain_chains)
+    check(len(chains) == len(plain_chains) > 0, "chunks recorded")
+    for i, (a, b) in enumerate(zip(chains, plain_chains)):
+        check(torch.equal(a, b), ("RMAC chain of chunk %d vs plain" % i,
+                                  float((a - b).abs().max())))
+    desc_err = max(float(np.abs(a - b).max()) for a, b in zip(out, pout))
+    check(desc_err <= DESC_ATOL, ("RMAC descriptors vs plain", desc_err))
+    say("stack", "ResNet101-RMAC: the chain bit-equal to the plain kernels "
+        "in all %d chunks, descriptors %.2e apart" % (len(chains), desc_err))
+
+    # c. densenet121-GeM and squeezenet1_1-GeM: gem_l2n at their maps
+    for arch in ("densenet121", "squeezenet1_1"):
+        tag = arch + "-GeM"
+        _, _, gem_in = run_net(tag, make_net(arch, "gem", False), plain,
+                               PLAIN_TRANSFORM)
+        pools[tag] = gem_path_phase(tag, pooling_kernel, gem_l2n_plain,
+                                    gem_in, gen, device)
+
+    # the Rpool net under auto: the guard's verdict (a reading)
+    auto = with_compute_dtype(rpool, "auto")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    reports, outs = [], []
+    for images in (db, queries):
+        extractor = extract.network_extractor(auto, plain)
+        for i, img in enumerate(images):
+            extractor.add(i, img)
+        outs.append(extractor.finish(len(images)))
+        reports.append(extractor.guard_report)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    guard = reports[0]
+    check(guard is not None and reports[1] is None,
+          ("auto: the guard runs once, on the first chunk", reports))
+    err = max(float(np.abs(a - b).max()) for a, b in zip(outs, rpool_out))
+    if not guard["ok"]:
+        check(err <= DESC_ATOL, ("guard rejected: float32 shipped", err))
+    readings["ResNet101-GeM-Rpool auto"] = dict(guard, images_per_s=(
+        n_images / seconds), max_err_vs_float32=err)
+    say("stack", "ResNet101-GeM-Rpool, auto: the guard on the first chunk "
+        "%s (least row cosine %.6f, bar %g); %.1f images/s with the guard; "
+        "max |desc - float32| %.2e | %s"
+        % ("accepted bfloat16" if guard["ok"]
+           else "rejected it: float32 from there on", guard["min_cosine"],
+           dtype_policy.GUARD_MIN_COSINE, n_images / seconds, err, smi))
+    say("stack", "phase 14: %.1f s | %s" % (time.perf_counter() - t_phase,
+                                            smi))
+    return {"launches": launches, "pools": pools, "readings": readings}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; it runs on a card only")
@@ -2345,6 +2567,16 @@ def main():
     # 13. the rest of the photometric chain and the host transforms
     photo_launches = photometric_phase(device, db, queries, path, clahe,
                                        lab_trilinear, pooling_kernel, smi)
+    # 14. the rest of the eval stack: Rpool, RMAC, densenet, squeezenet
+    whiten_1024 = os.path.join(whiten_dir, "whiten_1024_seed%d.pkl" % SEED)
+    with open(whiten_1024 + ".tmp", "wb") as handle:
+        pickle.dump({"P": np.eye(1024) + 0.01 * rng.randn(1024, 1024),
+                     "m": 0.01 * rng.randn(1024, 1)}, handle)
+    os.replace(whiten_1024 + ".tmp", whiten_1024)
+    stack = eval_stack_phase(
+        device, db, queries, gnd, {2048: whiten_path, 1024: whiten_1024,
+                                   CLAHE_DIM: path["whiten_path"]},
+        clahe, lab_trilinear, pooling_kernel, gem_l2n_plain, gen, smi)
     sources = {"lab_n": ("mdir_tpu_torch/csrc/lab_n.cu",
                          "mdir_tpu/ops/lab_trilinear.py:493",
                          ["mdir_tpu/ops/lab_trilinear.py:359"],
@@ -2363,9 +2595,11 @@ def main():
         "source": "mdir_tpu_torch/csrc/gem_l2n.cu",
         "replaces": "mdir_tpu/ops/pooling_pallas.py:59",
         "launches": launches,
-        "max_abs_err": max(max_err, resnet_pool["max_abs_err"],
-                           vgg_pool["max_abs_err"], trained["gem_err"],
-                           unet_pool["max_abs_err"]),
+        "max_abs_err": max([max_err, resnet_pool["max_abs_err"],
+                            vgg_pool["max_abs_err"], trained["gem_err"],
+                            unet_pool["max_abs_err"]]
+                           + [pool["max_abs_err"]
+                              for pool in stack["pools"].values()]),
         **resnet_pool["timed"], "library_ms": None,
         "small_batch": resnet_pool["small_batch"],
         "clahe_path_launches": path["launches"]["gem_l2n"],
@@ -2373,7 +2607,10 @@ def main():
                            small_batch=vgg_pool["small_batch"]),
         "composition_path_launches": composed["launches"],
         "composition_path": dict(unet_pool["timed"],
-                                 small_batch=unet_pool["small_batch"])}]
+                                 small_batch=unet_pool["small_batch"]),
+        "eval_stack_path": {tag: dict(pool["timed"],
+                                      small_batch=pool["small_batch"])
+                            for tag, pool in stack["pools"].items()}}]
     for name, (source, replaces, also, wrappers) in sources.items():
         kernels.append(dict(
             {"name": name, "route": "cuda", "source": source,
@@ -2434,6 +2671,9 @@ def main():
         entry["photometric_path_launches"] = {
             run: counted.get(entry["name"], 0)
             for run, counted in photo_launches.items()}
+        entry["eval_stack_path_launches"] = {
+            run: counted.get(entry["name"], 0)
+            for run, counted in stack["launches"].items()}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -273,7 +273,11 @@ class CirNetwork(SingleNetwork):
         groups = super().parameters(optimizer_opts)
         if groups is not None:
             for name in groups["labels"]:
-                if name.split(".")[0] == "pool":
+                # GeM's p (``pool.p``, Rpool's ``pool.rpool.p``); Rpool's
+                # whitening stays default, as the JAX package's
+                # ``pool_whiten`` scope does
+                if name.split(".")[0] == "pool" \
+                        and not name.startswith("pool.whiten."):
                     groups["labels"][name] = "pool"
             groups["opts"] = {"pool": {"lr_multiplier": 10.0,
                                        "weight_decay": 0.0}}

@@ -15,11 +15,16 @@ numpy arrays -- from a JAX model in memory or from its msgpack checkpoint --
 * batchnorm ``<m>/bn/{scale,bias}``         -> ``<m>.{weight,bias}``
 * ``batch_stats/<m>/bn/{mean,var}``         -> ``<m>.running_{mean,var}``
 * ``pool/p``                                -> ``pool.p``
+* a regional (Rpool) net's ``pool/p`` and ``pool_whiten`` -> cirtorch's
+  ``pool.rpool.p`` and ``pool.whiten``
 
 ResNet module names map to cirtorch's ``features`` indices: conv1 -> 0,
 bn1 -> 1, ``layer<L>_<B>`` -> ``<L+3>.<B>``, ``downsample_<i>`` ->
-``downsample.<i>``. The alexnet/vgg stacks already carry them:
-``features/<idx>/conv/{kernel,bias}`` -> ``features.<idx>.{weight,bias}``.
+``downsample.<i>``. The spec-driven stacks (alexnet, vgg, densenet,
+squeezenet) already carry them: ``features/<idx>/conv/{kernel,bias}`` ->
+``features.<idx>.{weight,bias}``, ``features/4/denselayer1/norm1/bn`` ->
+``features.4.denselayer1.norm1``, ``features/3/squeeze/conv`` ->
+``features.3.squeeze``.
 The U-Nets and autoencoders carry their torch names already (``outerblock``,
 ``nested``, the ``Sequential`` indices, ``model_<i>``).
 """
@@ -30,11 +35,16 @@ import numpy as np
 import torch
 
 _RESNET_STEM = {"conv1": "0", "bn1": "1"}
+#: a regional net's head in cirtorch's names (the JAX package renames them
+#: on import, ``mdir_tpu/models/torch_import.py:206-210``)
+_RPOOL = {"pool": "pool.rpool", "pool_whiten": "pool.whiten"}
 
 
-def _module_name(path):
+def _module_name(path, regional=False):
     """flax module path (tuple of names) -> the port's dotted module name."""
     head, rest = path[0], list(path[1:])
+    if regional and head in _RPOOL:
+        return ".".join([_RPOOL[head]] + rest)
     if head != "features" or not rest:
         return ".".join([head] + rest)
     if rest[0].isdigit():  # alexnet/vgg: torchvision's own index
@@ -62,12 +72,15 @@ def _leaves(tree, prefix=()):
 def from_jax_variables(variables_np):
     """flax variables of a model (numpy leaves) -> port state dict."""
     state = OrderedDict()
-    for path, value in _leaves(variables_np.get("params", {})):
+    params = variables_np.get("params", {})
+    regional = "pool_whiten" in params
+    for path, value in _leaves(params):
         if path == ("pool", "p"):
-            state["pool.p"] = value.reshape(-1)
+            state[_module_name(("pool",), regional) + ".p"] = \
+                value.reshape(-1)
             continue
         layer, leaf = path[-2], path[-1]
-        name = _module_name(path[:-2])
+        name = _module_name(path[:-2], regional)
         if layer == "conv" and leaf == "kernel":
             state[name + ".weight"] = np.transpose(value, (3, 2, 0, 1))
         elif layer == "dense" and leaf == "kernel":

@@ -13,7 +13,8 @@ trunks already carry cirtorch's ``features.<idx>`` names
 and its hash is checked; nothing is downloaded, so a missing file raises,
 naming the path to put it at.
 
-An official checkpoint's ``state_dict`` (``features.*``, ``pool.p``,
+An official checkpoint's ``state_dict`` (``features.*``, ``pool.p``, a
+regional net's ``pool.rpool.p`` and ``pool.whiten.weight/bias``,
 ``whiten.weight/bias``, ``lwhiten.weight/bias``) carries the names of the
 port's ``ImageRetrievalNet`` as well: ``import_model_state`` drops
 BatchNorm's ``num_batches_tracked`` counters and loads the rest with a
@@ -36,10 +37,11 @@ FEATURES_URLS = {
 def load_pretrained_features(model, architecture):
     """Fill ``model.features`` from the architecture's caffe features file.
 
-    An architecture without one (AlexNet among them) keeps its weights, as
-    in the JAX package, whose reference would take torchvision's weights,
-    which need a download. BatchNorm's ``num_batches_tracked`` counters are
-    dropped: frozen BatchNorm has none.
+    An architecture without one (AlexNet, the densenets and squeezenets
+    among them) keeps its weights, as in the JAX package, whose reference
+    would take torchvision's weights, which need a download. BatchNorm's
+    ``num_batches_tracked`` counters are dropped: frozen BatchNorm has
+    none.
     """
     if architecture not in FEATURES_URLS:
         return model

@@ -10,7 +10,9 @@ with per-image cv2 tile geometry from the host, colorspace conversions,
 normalize) on the full-resolution bucket, or float32 images a host
 transform made -> mask -> for each scale an exact per-image bilinear
 resize (host-computed gather grids, torch ``F.interpolate(scale_factor)``
-coordinates) -> masked trunk -> GeM+L2N kernel -> p-power aggregation over
+coordinates) -> masked trunk -> GeM+L2N kernel (or the plain MAC, SPoC,
+RMAC or Rpool head; RMAC and Rpool over per-scale region boxes computed
+here from each image's valid feature extent) -> p-power aggregation over
 scales -> L2 -> optional whitening. A transform that does not lower to the
 device chain runs on the host (JAX ``extract.py:945-977``), its device
 steps (``data.transforms.on_device``) on the model's device; so does a
@@ -27,7 +29,9 @@ translator writes into the pad), the masked embedder with the GeM+L2N
 kernel, then ``** msp``; the scales are summed on the host in float64,
 followed by ``^(1/msp)``, L2 and Lw. A network that neither batched path
 takes runs the exact per-image path: each image through the host
-transform and the network's own wrappers.
+transform and the network's own wrappers. ``extract_regional_vectors`` and
+``extract_local_vectors`` (cirtorch's ``extract_ssr`` and ``extract_ssl``)
+run the trunk image by image.
 
 Compute dtype (``ops/dtypes.py``, the network's ``runtime: compute_dtype``;
 a composition's from its embedder): in bfloat16 the trunks run from a bf16
@@ -43,6 +47,7 @@ device and launched in order on the current stream, and ``finish`` copies
 the descriptors back. Nothing here starts a thread or a process.
 """
 import collections
+import functools
 import math
 
 import numpy as np
@@ -50,12 +55,14 @@ import torch
 
 from ..data.transforms import on_device
 from ..device import check_compute_dtype
+from ..learning.network import _image_batch
 from ..learning.wrappers import (CirMultiscaleAggregation, CirtorchWhiten,
                                  FakeBatch, ReflectPadMakeDivisible)
-from ..models.trunks import apply_valid_mask
+from ..models.trunks import apply_valid_mask, trunk_valid_extent
 from ..ops import dtypes as dtype_policy
 from ..ops import preprocess
 from ..ops.clahe import aux_to_device, clahe_bucket_aux
+from ..ops.pooling import gem, l2n, mac, rmac_region_boxes, roipool, spoc
 from ..ops.resize import gather_crop, gather_resize, torch_resize_grid
 from ..ops.whitening import whitenapply_rows
 
@@ -108,14 +115,16 @@ def _plain_normalize_chain(transform):
 @torch.no_grad()
 def fused_forward(model, scales, batch, valid_hw, grids, msp, P=None, m=None,
                   mean=None, std=None, chain_fn=None, clahe_aux=None,
-                  compute_dtype=None):
+                  boxes=None, compute_dtype=None):
     """One chunk's descriptors: (B, H, W, C) bucket -> (B, D) float32.
 
     batch is uint8 (normalised here with ``mean``/``std``, or run through
     ``chain_fn(batch, clahe_aux)``, the device chain) or float32 (already
     normalised on the host); valid_hw (B, 2) int32; grids[s] is None for
-    scale 1, else (y0, y1, wy, x0, x1, wx, out_valid) of that scale.
-    ``compute_dtype`` casts each scale's input to the model's dtype.
+    scale 1, else (y0, y1, wy, x0, x1, wx, out_valid) of that scale;
+    boxes[s], for an RMAC or Rpool net, the (B, R, 4) region boxes of
+    scale s. ``compute_dtype`` casts each scale's input to the model's
+    dtype.
     """
     if chain_fn is not None:
         # the whole chain at full resolution in NHWC, then one permute
@@ -130,7 +139,7 @@ def fused_forward(model, scales, batch, valid_hw, grids, msp, P=None, m=None,
     x = x.contiguous()
 
     acc = None
-    for scale, grid in zip(scales, grids):
+    for si, grid in enumerate(grids):
         if grid is None:
             xs, v = x, valid_hw
         else:
@@ -138,7 +147,11 @@ def fused_forward(model, scales, batch, valid_hw, grids, msp, P=None, m=None,
             xs = apply_valid_mask(gather_resize(x, *grid[:-1]), v)
         if compute_dtype is not None:  # at the conv boundary
             xs = xs.to(compute_dtype)
-        powed = model(xs, v).to(torch.float32) ** msp
+        if boxes is None:
+            vecs = model(xs, v)
+        else:
+            vecs = model(xs, v, region_boxes=boxes[si])
+        powed = vecs.to(torch.float32) ** msp
         acc = powed if acc is None else acc + powed
     v = (acc / len(scales)) ** (1.0 / msp)
     v = v / torch.linalg.vector_norm(v, dim=1, keepdim=True)
@@ -162,6 +175,9 @@ class StreamingExtractor:
     from a copy of the model in that dtype; ``dtype_guard`` checks the
     first chunk against float32 (``guard_report`` holds its least row
     cosine and verdict) unless the model's verdict is cached.
+
+    An RMAC or Rpool net gets each chunk's region boxes per scale
+    (``region_boxes``), computed here from the images' scaled sizes.
     """
 
     def __init__(self, model, scales=(1,), msp=1.0, whiten=None,
@@ -185,6 +201,7 @@ class StreamingExtractor:
                 torch.tensor(v, dtype=torch.float32, device=self.device)
                 for v in normalize_mean_std)
             self.host_dtype = np.uint8
+        self.region_pooling = model.needs_region_boxes
         self.device_chain = device_chain
         self.chain_fn = None
         if device_chain is not None:
@@ -239,8 +256,7 @@ class StreamingExtractor:
             wx = np.zeros((bsz, ow_b), np.float32)
             out_valid = np.zeros((bsz, 2), np.int32)
             for bi, (ih, iw) in enumerate(shapes):
-                oh = int(math.floor(ih * scale))
-                ow = int(math.floor(iw * scale))
+                oh, ow = _scaled(ih, scale), _scaled(iw, scale)
                 y0[bi, :oh], y1[bi, :oh], wy[bi, :oh] = \
                     torch_resize_grid(ih, oh, scale)
                 x0[bi, :ow], x1[bi, :ow], wx[bi, :ow] = \
@@ -249,6 +265,30 @@ class StreamingExtractor:
             grids.append(tuple(torch.from_numpy(a).to(self.device)
                                for a in (y0, y1, wy, x0, x1, wx, out_valid)))
         return grids
+
+    def region_boxes(self, shapes, bsz, bucket):
+        """Per scale, the (bsz, R, 4) int32 RMAC/Rpool boxes of each
+        image's valid feature extent (JAX ``_region_boxes``): the grid of
+        ``trunk_valid_extent`` of the image's size at that scale (the
+        ``_scaled`` size the resize grid makes, at least 1), the extent at
+        least 1; R rounded up to a multiple of 8, zero-size boxes padding;
+        a filler slot takes the bucket's size."""
+        arch = self.model.architecture
+        sizes = list(shapes) + [bucket] * (bsz - len(shapes))
+        out = []
+        for scale in self.scales:
+            per_img = []
+            for ih, iw in sizes:
+                fh, fw = trunk_valid_extent(
+                    arch, (max(_scaled(ih, scale), 1),
+                           max(_scaled(iw, scale), 1)))
+                per_img.append(rmac_region_boxes(max(fh, 1), max(fw, 1)))
+            boxes = np.zeros((bsz, _round_up(max(map(len, per_img)), 8), 4),
+                             np.int32)
+            for bi, blist in enumerate(per_img):
+                boxes[bi, :len(blist)] = blist
+            out.append(boxes)
+        return out
 
     def _submit(self, bucket):
         items = self.buffers.pop(bucket)
@@ -273,10 +313,14 @@ class StreamingExtractor:
             clahe_aux = aux_to_device(clahe_bucket_aux(
                 list(shapes) + [bucket] * (bsz - len(items)), bucket,
                 clip_limit=clip, grid=grid), self.device)
+        boxes = None
+        if self.region_pooling:
+            boxes = [torch.from_numpy(b).to(self.device)
+                     for b in self.region_boxes(shapes, bsz, bucket)]
         args = (torch.from_numpy(batch).to(self.device),
                 torch.from_numpy(valid).to(self.device),
                 self._grids(shapes, bsz, bucket), self.msp, self.P, self.m,
-                self.mean, self.std, self.chain_fn, clahe_aux)
+                self.mean, self.std, self.chain_fn, clahe_aux, boxes)
         vecs = fused_forward(self.fast_model, self.scales, *args,
                              compute_dtype=self.compute_dtype)
         if self.guard_pending:
@@ -699,3 +743,44 @@ def extract_vectors_network(network, images, image_size, transform,
                                      uint8, loader)):
         extractor.add(i, arr)
     return extractor.finish(len(images))
+
+
+@torch.no_grad()
+def extract_regional_vectors(network, images, image_size, transform,
+                             bbxs=None, loader=None):
+    """Per-image region vectors (cirtorch ``extract_ssr``; JAX
+    ``extract_regional_vectors``): the whole map and cirtorch's region
+    grid of each image's features, pooled (GeM with the net's p, MAC, or
+    SPoC for any other pooling) and L2-normalised, neither whitened nor
+    summed. Returns a list of (R, D) arrays."""
+    network.eval()
+    model = network.model
+    on_device(transform, network.device)
+    if model.meta["pooling"] == "gem":
+        region_fn = functools.partial(gem, p=model.pool_p)
+    elif model.meta["pooling"] == "mac":
+        region_fn = mac
+    else:
+        region_fn = spoc
+    out = []
+    for arr in _decoded(images, image_size, bbxs, transform, False, loader):
+        feats, _ = model.features(_image_batch(arr, network.device))
+        out.append(l2n(roipool(feats, region_fn)[0]).cpu().numpy())
+    return out
+
+
+@torch.no_grad()
+def extract_local_vectors(network, images, image_size, transform,
+                          bbxs=None, loader=None):
+    """Per-image local descriptors (cirtorch ``extract_ssl``; JAX
+    ``extract_local_vectors``): each feature cell's channels
+    L2-normalised, as a (D, h*w) array in row-major cell order."""
+    network.eval()
+    on_device(transform, network.device)
+    out = []
+    for arr in _decoded(images, image_size, bbxs, transform, False, loader):
+        feats, _ = network.model.features(_image_batch(arr, network.device))
+        normed = l2n(feats, dim=1)[0]
+        out.append(normed.reshape(normed.shape[0], -1).cpu().numpy())
+    return out
+

@@ -3,10 +3,10 @@
 cirtorch names) that both packages read: the JAX package through its
 ``import_state_dict``, the port through ``import_model_state``.
 
-Three nets: a ResNet101-GeM whose layer table is cut to (1, 1, 1, 1) in
-both packages, with local and global whitening, and two AlexNet-GeMs, one
+Five nets: a ResNet101-GeM whose layer table is cut to (1, 1, 1, 1) in
+both packages, with local and global whitening, two AlexNet-GeMs, one
 without whitening (its multiscale power is its p) and one with (its power
-is 1). ``convert_contained_net`` of the ResNet and the plain AlexNet gives
+is 1), an AlexNet-GeM-Rpool (``-r``) and an AlexNet-RMAC. ``convert_contained_net`` of the ResNet and the plain AlexNet gives
 checkpoints whose descriptors agree (the AlexNet's within 1e-4 of the JAX
 package's own forward); ``embed`` (multiscale,
 with a whitening pkl) with either AlexNet agrees within 1e-4.
@@ -48,6 +48,11 @@ NETS = {
     "alexnet_whitened": {"architecture": "alexnet", "local_whitening": False,
                          "pooling": "gem", "regional": False,
                          "whitening": True},
+    "alexnet_gem_r": {"architecture": "alexnet", "local_whitening": False,
+                      "pooling": "gem", "regional": True, "whitening": True},
+    "alexnet_rmac": {"architecture": "alexnet", "local_whitening": False,
+                     "pooling": "rmac", "regional": False,
+                     "whitening": False},
 }
 SHAPES = [(64, 48), (48, 64), (56, 60), (64, 64), (40, 52), (60, 40)]
 DB = "retrieval-SfM-test"
@@ -123,9 +128,10 @@ def _official(path, net, seed):
             value = torch.rand(value.shape, generator=gen) + 0.5
         elif key.endswith(("running_mean", "bias")) and value.dim() == 1:
             value = 0.1 * torch.randn(value.shape, generator=gen)
-        elif key == "pool.p":
+        elif key in ("pool.p", "pool.rpool.p"):
             value = torch.tensor([2.8])
-        elif key.startswith(("whiten.", "lwhiten.")) and value.dim() == 2:
+        elif key.startswith(("whiten.", "lwhiten.", "pool.whiten.")) \
+                and value.dim() == 2:
             value = torch.eye(value.shape[0]) \
                 + 0.05 * torch.randn(value.shape, generator=gen)
         state[key] = value.clone()
@@ -182,13 +188,31 @@ def _convert_both(files, kind, tmp_path):
     theirs = jax_load_network({"path": str(theirs_path),
                                "runtime": None}).eval()
     assert ours.network_params._asdict() == theirs.network_params._asdict()
-    assert ours.model.pool_p == pytest.approx(2.8)
+    if NETS[kind]["pooling"] == "gem":
+        assert ours.model.pool_p == pytest.approx(2.8)
     img = np.random.RandomState(3).rand(56, 60, 3).astype(np.float32)
     return img, ours, again, theirs
 
 
 def test_convert_matches_jax(files, tmp_path):
     img, ours, again, theirs = _convert_both(files, "alexnet_gem", tmp_path)
+    np.testing.assert_allclose(
+        ours(img).cpu().numpy().reshape(-1),
+        np.asarray(theirs(img)).reshape(-1), rtol=0, atol=DESC_ATOL)
+    np.testing.assert_array_equal(again(img).cpu().numpy(),
+                                  ours(img).cpu().numpy())
+
+
+@pytest.mark.parametrize("kind", ["alexnet_gem_r", "alexnet_rmac"])
+def test_convert_regional_matches_jax(files, kind, tmp_path):
+    """An official ``-r`` (Rpool: ``pool.rpool.p``, ``pool.whiten``) and an
+    RMAC file: ``regional`` and ``pooling`` survive the conversion in both
+    packages, and the descriptors agree with the JAX package's."""
+    _, ours, again, theirs = _convert_both(files, kind, tmp_path)
+    model = ours.network_params.model
+    assert (model["pooling"], model["regional"]) \
+        == (NETS[kind]["pooling"], NETS[kind]["regional"])
+    img = np.random.RandomState(6).rand(96, 128, 3).astype(np.float32)
     np.testing.assert_allclose(
         ours(img).cpu().numpy().reshape(-1),
         np.asarray(theirs(img)).reshape(-1), rtol=0, atol=DESC_ATOL)

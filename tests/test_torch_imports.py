@@ -413,3 +413,55 @@ def test_photometric_paths_run_without_jax_cv2_pil():
     result = _run(["-c", RUN_PHOTOMETRIC], ROOT)
     assert result.returncode == 0, result.stderr[-3000:]
     assert result.stdout.split("\n")[-2] == "device device host"
+
+
+RUN_REGIONAL = """
+import sys
+for name in %r:
+    sys.modules[name] = None
+import numpy as np, torch
+from mdir_tpu_torch.learning.network import CirNetwork
+from mdir_tpu_torch.models import initialize_model, trunks
+from mdir_tpu_torch.parallel import extract
+torch.set_num_threads(1)  # small tensors, beside the other test workers
+trunks.DENSENET_CFGS["densenet121"] = (64, 32, (1, 1, 1, 1))
+trunks.OUTPUT_DIM["densenet121"] = 68  # the cut blocks' width
+rng = np.random.RandomState(0)
+images = [(rng.rand(*s, 3) * 255).astype(np.uint8)
+          for s in ((96, 72), (70, 70))]
+mean_std = [[0.485, 0.456, 0.406], [0.229, 0.224, 0.225]]
+shapes = []
+for arch, pool, regional in (("alexnet", "rmac", False),
+                             ("alexnet", "gem", True),
+                             ("squeezenet1_1", "gem", False),
+                             ("densenet121", "spoc", True)):
+    params = {"architecture": "cirnet", "cir_architecture": arch,
+              "local_whitening": False, "pooling": pool,
+              "regional": regional, "whitening": False, "pretrained": False}
+    net = CirNetwork(initialize_model(params, device="cpu"),
+                     CirNetwork.NetworkParams(model=params, runtime={
+                         "wrappers": "cirmultiscale:True"}), frozen=True)
+    extractor = extract.StreamingExtractor(
+        net.model, scales=[1, 0.5], normalize_mean_std=mean_std)
+    for i, img in enumerate(images):
+        extractor.add(i, img)
+    out = extractor.finish(len(images))
+    assert np.isfinite(out).all() and extractor.region_pooling == (
+        pool == "rmac" or regional)
+    shapes.append(out.shape[0])
+regional = extract.extract_regional_vectors(net, images[:1], None,
+                                            lambda a: a.astype(np.float32))
+local = extract.extract_local_vectors(net, images[:1], None,
+                                      lambda a: a.astype(np.float32))
+print(shapes, regional[0].shape[1], local[0].shape[0])
+""" % (BLOCKED,)
+
+
+def test_regional_nets_run_without_jax_pil():
+    """RMAC and Rpool nets through the batched extractor (region boxes per
+    scale), the squeezenet and densenet trunks, and the regional and local
+    vectors, with JAX, the JAX package, cv2, PIL, yaml and msgpack
+    blocked."""
+    result = _run(["-c", RUN_REGIONAL], ROOT)
+    assert result.returncode == 0, result.stderr[-3000:]
+    assert result.stdout.split("\n")[-2] == "[256, 256, 512, 68] 68 68"

@@ -59,18 +59,35 @@ def test_gem_l2n_wrapper_on_cpu_is_plain(rng, shape, valid):
     assert torch.equal(out, pooling.gem_l2n_plain(x, valid, p))
 
 
-@pytest.mark.parametrize("name", ["mac", "spoc", "gem"])
+@pytest.mark.parametrize("name", ["mac", "spoc", "gem", "rmac"])
 @pytest.mark.parametrize("masked", [False, True])
 def test_pools_match_jax(rng, name, masked):
+    """Each global pool, unmasked and under the valid-extent mask; RMAC's
+    masked form is ``rmac_masked`` over each extent's region boxes, R
+    rounded up to a multiple of 8 with empty slots."""
     x = rng.rand(3, 7, 9, 16).astype(np.float32)
     valid = np.asarray([[7, 9], [3, 4], [1, 1]], np.int32)
+    if name == "rmac" and masked:
+        per_img = [pooling.rmac_region_boxes(h, w) for h, w in valid]
+        boxes = np.zeros((3, -(-max(map(len, per_img)) // 8) * 8, 4),
+                         np.int32)
+        for i, b in enumerate(per_img):
+            boxes[i, :len(b)] = b
+        assert jax_pooling.rmac_region_boxes(7, 9) == per_img[0]
+        ref = jax_pooling.rmac_masked(jnp.asarray(x), jnp.asarray(boxes))
+        ours = pooling.rmac_masked(_nchw(x), torch.from_numpy(boxes))
+        np.testing.assert_allclose(np.asarray(ref), ours.numpy(),
+                                   rtol=1e-5, atol=1e-6)
+        return
     jmask = tmask = None
     if masked:
         jmask = jax_feature_mask((7, 9), jnp.asarray(valid))
         tmask = pooling.feature_mask((7, 9), torch.from_numpy(valid))
         np.testing.assert_array_equal(np.asarray(jmask), tmask.numpy())
-    ref = jax_pooling.POOLING[name](jnp.asarray(x), mask=jmask)
-    ours = pooling.POOLING[name](_nchw(x), mask=tmask)
+    kwargs = ({}, {}) if name == "rmac" else ({"mask": jmask},
+                                              {"mask": tmask})
+    ref = jax_pooling.POOLING[name](jnp.asarray(x), **kwargs[0])
+    ours = pooling.POOLING[name](_nchw(x), **kwargs[1])
     np.testing.assert_allclose(np.asarray(ref), ours.numpy(),
                                rtol=1e-5, atol=1e-6)
 

@@ -114,7 +114,7 @@ Phases, one line each with its wall time:
      CLAHE net (scales 1, 2^-1/2, 1/2, image size 1024) from a checkpoint,
      its rows bit-equal to ``extract_vectors_network`` on the same arrays,
      a NaN row at the missing name, gem_l2n launched once per chunk x
-     scale and each CLAHE kernel once per chunk (three timed runs, images/s
+     scale and each CLAHE kernel once per chunk (a timed run, images/s
      without the network load, which is timed apart); Lw learned on all
      448 ordered within-cluster pairs (seconds, failed_times, cond(P); 64
      images span at most 63 of the 512 directions, so the Lw applied is
@@ -128,8 +128,8 @@ Phases, one line each with its wall time:
      ``learn_whitening``'s extraction on the 64 arrays (gem_l2n once per
      chunk x scale) with ``whitenlearn`` over it (both timed); the infer
      stage's translation of the 64 images by phase 10's P2pUNet through
-     ``StreamingTranslator``, three timed passes with two batches in
-     flight and three with none, of the input shapes and within one level
+     ``StreamingTranslator``, a timed pass with two batches in
+     flight and one with none, of the input shapes and within one level
      of the per-image path (images/s, the forwards' device time and share
      of the pass, share of differing values, the phase's peak memory);
  13. the rest of the photometric chain, in float32, on phase 7's VGG16-GeM
@@ -170,6 +170,30 @@ Phases, one line each with its wall time:
      net under ``auto``: the guard runs once and its verdict is printed (a
      rejection must ship float32). Each run prints images/s, peak memory,
      R per scale, launches and the card's name and power limit.
+ 15. image-model training, in float32, through the train stage: the
+     P2pUNet translator at full width with dropout 0.5 on 16 in-memory
+     day/night pairs (``PregeneratedImageTuple``, L1, adam, 4 pairs a
+     batch, 2 epochs; ``downscale``, ``scalecrop``, ``mirror`` and
+     ``gaussian_noise`` in training, ``downscale``, ``random_crop`` and
+     ``center_crop`` in its loss validation on 8 held-out pairs); then the
+     joint N/D training of phase 10's P2pUNet and phase 7's VGG16-GeM
+     (``embed: null``, contrastive, adam, 5 tuples of 7 square 512 px
+     images a step from phase 9's database, 2 steps an epoch, 3 epochs,
+     loss validation on a val split each epoch), epoch 3 rerun from epoch
+     2's checkpoint files, then two steps with both members trained and
+     ``alternate_iteration: 1``. Gates: an epoch's batches bit-identical
+     when rerun from its seed; Dropout's mask the same from one generator
+     state, eval the identity; one step of each training on the card
+     against the CPU at 256 x 256 (loss within 1e-4, the flattened
+     gradient at cosine >= 0.9999, the live BatchNorm statistics within
+     1e-5); mining's negatives the same with the plain pool; loss
+     validation (the composition's through its wrappers, the embedder's as
+     one padded bucket a batch) within 1e-4 of its plain run; the
+     embedder bit-unchanged; the rerun epoch within 1e-4 of the straight
+     run; the alternation moving translate, then embed. gem_l2n must
+     launch in mining and loss validation and never in a step (it pools
+     under autograd). It prints s/step, mining images/s, loss validation
+     s, peak memory, launches and the phase's seconds.
 Then one JSON line of kernels (gem_l2n, gem_l2n_bf16 timed at the bf16
 paths' maps, gem_l2n_f16 at the float16 path's, with its times at the bf16
 maps as off-path readings; each redesigned kernel tagged with the PR of
@@ -177,7 +201,8 @@ its redesign; launches on the training and composition paths, mining and
 train step apart; on phase 12's runs, ``dump_path_launches``; on phase
 13's, ``photometric_path_launches``; on phase 14's,
 ``eval_stack_path_launches``, and gem_l2n's times at the densenet and
-squeezenet maps, ``eval_stack_path``), the
+squeezenet maps, ``eval_stack_path``; on phase 15's,
+``image_train_path_launches``), the
 nvidia-smi line, and the last line
 {"ok": true, "device": {...}}. Any failure raises (non-zero exit, no last
 line). Without a card, or without the port beside it, it fails at once.
@@ -279,7 +304,9 @@ UNET_RTOL, UNET_ATOL = 1e-4, 1e-5  # batched against per-image
 WHITEN_IMAGES = {}  # name -> (H, W, 3) uint8, served by dump_loader
 WHITEN_CLUSTERS, WHITEN_CROPS = 8, 8
 WHITEN_MISSING, WHITEN_MISSING_AT = "absent", 5
-DUMP_REPEATS = 3  # timed infer and translation passes, after a warm one
+# timed infer and translation passes after a warm one: one, so that the
+# whole script stays within 300 s cold
+DUMP_REPEATS = 1
 F32_EPS = 2.0 ** -24  # float32 unit roundoff
 TF32_EPS = 2.0 ** -11  # TF32's (10 stored mantissa bits)
 ROUNDING_LAMBDA = 1.0  # the statistical rounding bound's lambda
@@ -292,6 +319,31 @@ LUT_OPS_PER_BIN = 10
 # images)
 LUV_FLIP_RATE = 0.02
 LUV_FLIP_READ = 1e-4
+# phase 15: image-model training, float32. The translator alone: L1 on 16
+# in-memory day/night pairs (a smooth colour field by day, darkened and
+# tinted by night), validated on 8 held-out pairs; all six augmentations
+# run between the two pipelines. Then the joint N/D training of phase 10's
+# P2pUNet and phase 7's VGG16-GeM on phase 9's database cut to square
+# 512 px images (its val split: 5 further pairs over the same pool)
+PAIR_IMAGES = {}  # name -> (H, W, 3) uint8, served by pairs_loader
+PAIR_SHAPE = (384, 512)
+PAIR_TRAIN, PAIR_HELD_OUT, PAIR_BATCH, PAIR_EPOCHS = 16, 8, 4, 2
+PAIR_TRANSFORM = ("pil2np | downscale:362 | scalecrop:256_256:0.75_1 | "
+                  "mirror | gaussian_noise:0.02 | totensor | normalize")
+PAIR_VAL_TRANSFORM = ("pil2np | downscale:288 | random_crop:272 | "
+                      "center_crop:256 | totensor | normalize")
+TRANSLATOR_MODEL = dict(UNET_MODEL, dropout=0.5)
+JOINT_IMAGES = {}  # name -> (512, 512, 3) uint8, served by joint_loader
+JOINT_SIDE, JOINT_EPOCHS = 512, 3  # epoch 3 is rerun from epoch 2's files
+JOINT_VAL_PAIRS, JOINT_VAL_POOL = 5, 20
+CHECK_SIDE = 256  # the card-against-CPU steps (the P2pUNet's 2^8)
+BN_RTOL = BN_ATOL = 1e-5  # BatchNorm statistics, card against CPU
+# each gradient tensor's floor beside the flattened gradient's
+# GRAD_MIN_COSINE: about 10x under the least a tensor read in sound runs
+# (0.99987, a BatchNorm bias over the innermost levels' 1 x 1 cells)
+GRAD_MIN_TENSOR_COSINE = 0.999
+GEM_DTYPES = {torch.float32: "gem_l2n", torch.bfloat16: "gem_l2n_bf16",
+              torch.float16: "gem_l2n_f16"}  # instantiation per map dtype
 
 T0 = time.perf_counter()
 
@@ -1918,10 +1970,10 @@ def dump_phase(device, db, queries, path, composed, resnet, clahe,
         return stream.batches
 
     # two batches in flight (the default) and, alternating with them, none
-    # (each batch drained as soon as it is queued): one pass of each warm
+    # (each batch drained as soon as it is queued): one warm pass, in flight
     passes = {2: [], 0: []}  # depth -> [(wall s, forwards' device ms)]
     for run in range(DUMP_REPEATS + 1):
-        for depth in passes:
+        for depth in passes if run else (2,):
             spans = []
             torch.cuda.synchronize()
             if run == 1 and depth == 2:
@@ -1951,13 +2003,17 @@ def dump_phase(device, db, queries, path, composed, resnet, clahe,
     for depth, timed in passes.items():
         say("dump", "translation of %d images at up to %d px, P2pUNet "
             "(reflectpad_divisible:%d) in %d batches, %d in flight, %d "
-            "passes after a warm one: %s s, %s images/s; the forwards' "
+            "passes after a warm one in flight: %s s, %s images/s; the "
+            "forwards' "
             "device time (CUDA events) %s ms, %s of the pass"
             % (len(arrays), IMAGE_SIZE, UNET_DIVISOR, batches, depth,
-               DUMP_REPEATS, ["%.3f" % wall for wall, _ in timed[1:]],
-               ["%.1f" % (len(arrays) / wall) for wall, _ in timed[1:]],
-               ["%.1f" % busy for _, busy in timed[1:]],
-               ["%.1f%%" % (busy / 10.0 / wall) for wall, busy in timed[1:]]))
+               DUMP_REPEATS,
+               ["%.3f" % wall for wall, _ in timed[-DUMP_REPEATS:]],
+               ["%.1f" % (len(arrays) / wall)
+                for wall, _ in timed[-DUMP_REPEATS:]],
+               ["%.1f" % busy for _, busy in timed[-DUMP_REPEATS:]],
+               ["%.1f%%" % (busy / 10.0 / wall)
+                for wall, busy in timed[-DUMP_REPEATS:]]))
     say("dump", "translation against the per-image path: max |diff| %d "
         "level, %.4f%% of values differ; phase peak %.2f GB"
         % (worst, 100.0 * differ / total, peak / 1e9))
@@ -2344,6 +2400,725 @@ def eval_stack_phase(device, db, queries, gnd, whiten_paths, clahe,
     return {"launches": launches, "pools": pools, "readings": readings}
 
 
+def pairs_loader(path):
+    """The translator's pairs: in-memory uint8 images."""
+    return PAIR_IMAGES[os.path.basename(path)]
+
+
+def joint_loader(path):
+    """The joint training's database: in-memory uint8 images."""
+    return JOINT_IMAGES[os.path.basename(path)]
+
+
+def make_pairs(rng, count):
+    """``count`` day/night pairs into PAIR_IMAGES as dayNN and nightNN: a
+    smooth colour field with noise, and the same darkened (gamma 2.2, x0.5)
+    and tinted toward blue with its own noise."""
+    import torch.nn.functional as F
+
+    h, w = PAIR_SHAPE
+    for k in range(count):
+        field = F.interpolate(
+            torch.from_numpy(rng.rand(1, 3, 5, 7).astype(np.float32)),
+            size=(h, w), mode="bilinear",
+            align_corners=False)[0].numpy().transpose(1, 2, 0)
+        day = np.clip(field * 255 + rng.randn(h, w, 3) * 6, 0, 255)
+        night = (day / 255) ** 2.2 * np.array([0.35, 0.4, 0.6]) * 255 \
+            + rng.randn(h, w, 3) * 4
+        PAIR_IMAGES["day%02d" % k] = day.astype(np.uint8)
+        PAIR_IMAGES["night%02d" % k] = np.clip(night, 0, 255).astype(np.uint8)
+
+
+def write_pairs(path, ks):
+    with open(path, "w") as handle:
+        handle.write("pair\n")
+        for k in ks:
+            handle.write(json.dumps(["day%02d" % k, "night%02d" % k]) + "\n")
+
+
+def pairs_data(tsv, transforms):
+    """A PregeneratedImageTuple section: input the night shot, target the
+    day shot."""
+    return {"mean_std": UNET_DATA["mean_std"], "transforms": transforms,
+            "dataset": {"name": "PregeneratedImageTuple", "dataset": tsv,
+                        "data_key": "pair", "image_dir": "/pairs",
+                        "idx": "1_0", "loader": pairs_loader},
+            "loader": {"batch_size": PAIR_BATCH}}
+
+
+def learning_section(directory, epochs, criterion, optimizer, scheduler,
+                     batch_average, every=0):
+    """A TrainValLearning section validating on ``data: val``; with
+    ``every`` 1 every epoch's files are written and stay, with 0 the last
+    epoch's only."""
+    return {
+        "type": "TrainValLearning",
+        "checkpoints": {"directory": directory, "store_every": every,
+                        "checkpoint_every": every},
+        "training": {
+            "type": "EpochTraining", "epochs": epochs, "deterministic": True,
+            "seed": SEED, "criterion": criterion, "optimizer": optimizer,
+            "scheduler": scheduler,
+            "epoch_iteration": {"type": "SupervisedEpoch", "data": "train",
+                                "criterion": "default",
+                                "batch_average": batch_average,
+                                "fakebatch": not batch_average}},
+        "validation": {"type": "SingleValidation", "data": "val",
+                       "criterion": "default", "network_overlay": None,
+                       "frequency": 1}}
+
+
+def translator_scenario(directory, tsvs, epochs):
+    """The translator alone (dropout 0.5): L1, adam (pix2pix's lr), loss
+    validation on held-out pairs."""
+    return {
+        "network": {"type": "SingleNetwork", "path": None,
+                    "model": dict(TRANSLATOR_MODEL),
+                    "initialize": {"weights": "normal_p2p", "seed": SEED},
+                    "runtime": {"wrappers": "", "data": dict(UNET_DATA),
+                                **FLOAT32_RUNTIME}},
+        "learning": learning_section(
+            directory, epochs, {"loss": "l1"},
+            {"algorithm": "adam", "lr": 2e-4, "weight_decay": 0},
+            {"algorithm": "const"}, True),
+        "output": {"learning": {"progress": {"print_each": 0}}},
+        "data": {"train": pairs_data(tsvs[0], PAIR_TRANSFORM),
+                 "val": pairs_data(tsvs[1], PAIR_VAL_TRANSFORM)}}
+
+
+def joint_optimizer(embed=None, alternate=None, order=None):
+    adam = {"algorithm": "adam", "lr": 1e-4, "weight_decay": 0}
+    return {"composition": {"type": "alternation",
+                            "alternate_iteration": alternate,
+                            "order": order},
+            "translate": adam, "embed": embed and dict(adam)}
+
+
+def joint_scenario(directory, db_pkl, epochs):
+    """The paper's "U-Net jointly N/D" training: phase 10's P2pUNet then
+    phase 7's VGG16-GeM, the embedder frozen (``embed: null``),
+    contrastive loss, mining through the composition, loss validation on
+    the val split."""
+    tuples = {"name": "CirTuples", "dataset": "retrieval-SfM-smoke",
+              "image_size": JOINT_SIDE, "neg_num": TRAIN_NEG_NUM,
+              "dataset_pkl": db_pkl, "image_dir": None,
+              "loader": joint_loader}
+    return {
+        "network": {
+            "type": "SequentialNetwork", "sequence": "translate,embed",
+            "translate": {"type": "SingleNetwork", "path": None,
+                          "model": dict(UNET_MODEL),
+                          "initialize": {"weights": "normal_p2p",
+                                         "seed": SEED},
+                          "runtime": {"wrappers": "",
+                                      "data": dict(UNET_DATA)}},
+            "embed": {"type": "CirNetwork", "path": None,
+                      "model": dict(CLAHE_MODEL),
+                      "initialize": {"weights": "default", "seed": SEED},
+                      "runtime": {"wrappers": {
+                          "train": "cirfaketuplebatch",
+                          "eval": "cirfaketuplebatch"},
+                          **FLOAT32_RUNTIME}}},
+        "learning": learning_section(
+            directory, epochs, {"loss": "contrastive", "margin": 0.7,
+                                "eps": 1e-6},
+            joint_optimizer(), None, False, every=1),
+        "output": {"learning": {"progress": {"print_each": 0}}},
+        "data": {
+            "train": {"transforms": PLAIN_TRANSFORM, "dataset": dict(
+                tuples, split="train", query_size=TRAIN_QUERY_SIZE,
+                pool_size=TRAIN_POOL_SIZE),
+                "loader": {"batch_size": TRAIN_BATCH}},
+            "val": {"transforms": PLAIN_TRANSFORM, "dataset": dict(
+                tuples, split="val", query_size=JOINT_VAL_PAIRS,
+                pool_size=JOINT_VAL_POOL),
+                "loader": {"batch_size": TRAIN_BATCH}}},
+    }
+
+
+def cpu_dropout_masks():
+    """Dropout with its masks drawn from a CPU generator and moved to the
+    input's device, so a card and a CPU run drop the same cells."""
+    from mdir_tpu_torch.models import layers
+
+    def forward(self, x):
+        if not self.training or self.p == 0:
+            return x
+        keep = 1.0 - self.p
+        u = torch.rand(x.shape, generator=self.generator,
+                       dtype=x.dtype).to(x.device)
+        return torch.where(u < keep, x / keep, torch.zeros_like(x))
+
+    return mock.patch.object(layers.Dropout, "forward", forward)
+
+
+def card_cpu_image_step(tag, device, state, images, targets, chain=None):
+    """One step of the network of checkpoint ``state`` on the card and on
+    the CPU from the same weights, the Dropout masks from one CPU seed: the
+    loss (relative), the cosine of the flattened gradient of the trained
+    parameters at GRAD_MIN_COSINE and each tensor's at
+    GRAD_MIN_TENSOR_COSINE (a BatchNorm over the four 1 x 1 cells of the
+    innermost level amplifies float32 rounding there), and the live
+    BatchNorm statistics after the step."""
+    from mdir_tpu_torch.learning.network import initialize_network
+    from mdir_tpu_torch.learning.train_step import TrainStep
+    from mdir_tpu_torch.optim.criteria import initialize_criterion
+
+    criterion = {"loss": "l1"} if chain is None else {
+        "loss": "contrastive", "margin": 0.7, "eps": 1e-6}
+    results = []
+    with cpu_dropout_masks():
+        for where in (device, torch.device("cpu")):
+            net = initialize_network(None, where, copy.deepcopy(state))
+            net.train()
+            step = TrainStep(net, initialize_criterion(criterion),
+                             device_chain=chain,
+                             generator=torch.Generator().manual_seed(SEED))
+            loss, _ = step.gradients(images, targets)
+            models = [m.model for m in step.members]
+            results.append((float(loss), {
+                name: p.grad.detach().cpu().double()
+                for m in models for name, p in m.named_parameters()
+                if p.grad is not None}, {
+                name: b.detach().cpu().double()
+                for m in models for name, b in m.named_buffers()
+                if name.endswith(("running_mean", "running_var"))}))
+    (card_loss, card, card_bn), (cpu_loss, cpu, cpu_bn) = results
+    rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    check(card.keys() == cpu.keys() and cpu, ("gradients", sorted(cpu)))
+
+    def cosine(a, b):
+        return float((a * b).sum() / (a.norm() * b.norm()))
+
+    flat = cosine(*(torch.cat([g[name].reshape(-1) for name in sorted(cpu)])
+                    for g in (card, cpu)))
+    cosines = {name: cosine(card[name], cpu[name])
+               for name in cpu if cpu[name].norm() > 0}
+    worst = min(cosines, key=cosines.get)
+    bn_err = max(float(((card_bn[n] - cpu_bn[n]).abs()
+                        - BN_RTOL * cpu_bn[n].abs()).max())
+                 for n in cpu_bn)
+    say(tag, "one step at %d x %d, card against CPU: loss %.6f vs %.6f "
+        "(rel %.2e), gradient cosine %.8f (%d tensors; the least a "
+        "tensor's %.7f, %s), BatchNorm statistics: max |diff| - rtol |CPU| "
+        "%.2e (%d tensors)"
+        % (CHECK_SIDE, CHECK_SIDE, card_loss, cpu_loss, rel, flat,
+           len(cosines), cosines[worst], worst, bn_err, len(cpu_bn)))
+    check(rel <= LOSS_RTOL, (tag + " card step loss vs CPU", card_loss,
+                             cpu_loss))
+    check(flat >= GRAD_MIN_COSINE, (tag + " card step gradient vs CPU",
+                                    flat))
+    check(cosines[worst] >= GRAD_MIN_TENSOR_COSINE,
+          (tag + " card step gradient tensor vs CPU", worst, cosines[worst]))
+    check(cpu_bn and bn_err <= BN_ATOL, (tag + " BatchNorm statistics",
+                                         bn_err))
+
+
+class PhaseRecorder:
+    """Patches of the train stage's seams for phase 15: each step timed
+    (and epoch 0's batches kept), each mining timed with its launches, RNG
+    state and weights, each loss validation timed with its launches and
+    losses, and each epoch's network state. The training file of epoch
+    ``keep`` is copied aside (a later epoch's save deletes it)."""
+
+    def __init__(self, counts, keep=None):
+        self.counts = counts
+        self.keep = keep
+        self.steps, self.minings, self.validations = [], [], []
+        self.saved, self.batches = {}, []
+
+    def patches(self):
+        import contextlib
+
+        from mdir_tpu_torch.data.datasets import TuplesDataset
+        from mdir_tpu_torch.learning.checkpoints import Checkpoints
+        from mdir_tpu_torch.learning.epoch_iteration import SupervisedEpoch
+        from mdir_tpu_torch.learning.validation import LossValidation
+
+        mine, step, validate, save = (
+            TuplesDataset.create_epoch_tuples,
+            SupervisedEpoch._optimization_step, LossValidation.validate,
+            Checkpoints.save_epoch)
+        recorder = self
+
+        def timed_mine(dataset, network):
+            members = getattr(network, "networks", {"net": network})
+            record = {"dataset": dataset, "network": network,
+                      "rng": np.random.get_state(),
+                      "before": recorder.counts(),
+                      "weights": {name: {k: v.clone() for k, v in
+                                         m.model.state_dict().items()}
+                                  for name, m in members.items()}}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            stats = mine(dataset, network)
+            torch.cuda.synchronize()
+            record.update(seconds=time.perf_counter() - t,
+                          after=recorder.counts(), mined=dict(dataset.mined),
+                          nidxs=[list(n) for n in dataset.nidxs])
+            recorder.minings.append(record)
+            return stats
+
+        def timed_step(epoch, network, optimizer, images, targets):
+            if epoch.epoch == 0:
+                recorder.batches.append((images, targets))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            losses = step(epoch, network, optimizer, images, targets)
+            torch.cuda.synchronize()
+            recorder.steps.append((epoch.epoch, time.perf_counter() - t,
+                                   len(images)))
+            return losses
+
+        def timed_validate(validation, network, logger=None):
+            record = {"validation": validation, "before": recorder.counts(),
+                      "rng": np.random.get_state()}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            losses = validate(validation, network, logger)
+            torch.cuda.synchronize()
+            record.update(seconds=time.perf_counter() - t, losses=losses,
+                          after=recorder.counts())
+            recorder.validations.append(record)
+            return losses
+
+        def recorded_save(store, networks_state, *args, **kwargs):
+            import shutil
+
+            recorder.saved[args[1]] = copy.deepcopy(networks_state)
+            save(store, networks_state, *args, **kwargs)
+            if args[1] == recorder.keep:
+                path = os.path.join(store.directory, "learning_epoch_%02d.ckpt"
+                                    % (args[1] + 1))
+                shutil.copy(path, path + ".kept")
+
+        patches = contextlib.ExitStack()
+        for owner, name, fn in (
+                (TuplesDataset, "create_epoch_tuples", timed_mine),
+                (SupervisedEpoch, "_optimization_step", timed_step),
+                (LossValidation, "validate", timed_validate),
+                (Checkpoints, "save_epoch", recorded_save)):
+            patches.enter_context(mock.patch.object(owner, name, fn))
+        return patches
+
+
+def launch_split(recorder, start, end):
+    """Each kernel's launches in a run, from the counts ``start`` before it
+    to ``end`` after it: mining (train and val tuples), loss validation
+    (its own mining apart) and train steps."""
+    def spent(records, name):
+        return sum(r["after"][name] - r["before"][name] for r in records)
+
+    split = {}
+    for name in end:
+        mining = spent(recorder.minings, name)
+        validation = spent(recorder.validations, name)
+        val_mining = spent([m for m in recorder.minings
+                            if m["dataset"].mode == "val"], name)
+        split[name] = {"mining": mining,
+                       "loss_validation": validation - val_mining,
+                       "train_step": end[name] - start[name] - mining
+                       - (validation - val_mining)}
+    return split
+
+
+def query_gaps(mined):
+    """Each query's smallest score gap its picked negatives relied on:
+    ``selection_gap`` of that query's picks alone."""
+    from mdir_tpu_torch.data.datasets import selection_gap
+
+    positions = mined["positions"]
+    return [selection_gap(mined["scores"], mined["ranks"], [
+        picked if i == q else [] for i, picked in enumerate(positions)])
+        for q in range(len(positions))]
+
+
+def image_train_phase(device, clahe, lab_trilinear, pooling_kernel,
+                      gem_l2n_plain, gen, smi):
+    """Phase 15: the translator's L1 training on image pairs and the joint
+    N/D training of the composition, in float32, each through the train
+    stage with loss validation; their checks; each kernel entry's launches;
+    the pool kernel at every input the phase gave it."""
+    import contextlib
+    import io
+    import shutil
+
+    from mdir_tpu_torch import _build
+    from mdir_tpu_torch.data.datasets import initialize_dataset_loader
+    from mdir_tpu_torch.data.loaders import DataLoader
+    from mdir_tpu_torch.learning.epoch_iteration import SupervisedEpoch
+    from mdir_tpu_torch.learning.network import initialize_network
+    from mdir_tpu_torch.learning.training import reseed_host
+    from mdir_tpu_torch.models.layers import Dropout, set_dropout_generator
+    from mdir_tpu_torch.optim.criteria import initialize_criterion
+    from mdir_tpu_torch.optim.optimizers import initialize_optimizer
+    from mdir_tpu_torch.stages.train import train
+
+    t_phase = time.perf_counter()
+    root = os.path.join(_build.BUILD_ROOT, "smoke", "image_train")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    loss_key = "train/learning/loss:total_avg.4"
+    val_key = "val/learning/loss:total_avg.4"
+    # every gem_l2n call of the phase, recorded (comparisons with the plain
+    # version patch the pool and are not recorded)
+    pool_inputs, pool_dtypes = [], []
+    recording = mock.patch.object(pooling_kernel, "gem_l2n", recording_pool(
+        pooling_kernel.gem_l2n, pool_inputs, pool_dtypes))
+    pooling_kernel.reset_launches()
+    lab_trilinear.reset_launches()
+    clahe.reset_launches()
+    recording.start()
+
+    def counts():
+        """Each kernel entry's launches in the phase so far: the chain
+        kernels' counters, and gem_l2n's counter (one for its three
+        instantiations) split by the dtype of the maps it was given."""
+        n = kernel_counts(clahe, lab_trilinear, pooling_kernel)
+        check(n["gem_l2n"] == len(pool_dtypes),
+              ("gem_l2n launches against its recorded calls", n["gem_l2n"],
+               len(pool_dtypes)))
+        n.update({name: sum(d == dtype for d in pool_dtypes)
+                  for dtype, name in GEM_DTYPES.items()})
+        return n
+
+    def reset():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return counts()
+
+    # 1. the translator alone on day/night pairs
+    make_pairs(np.random.RandomState(SEED), PAIR_TRAIN + PAIR_HELD_OUT)
+    tsvs = [os.path.join(root, name) for name in ("pairs.tsv", "val.tsv")]
+    write_pairs(tsvs[0], range(PAIR_TRAIN))
+    write_pairs(tsvs[1], range(PAIR_TRAIN, PAIR_TRAIN + PAIR_HELD_OUT))
+    exp = os.path.join(root, "translator")
+    recorder = PhaseRecorder(counts)
+    start = reset()
+    t = time.perf_counter()
+    with recorder.patches(), contextlib.redirect_stdout(io.StringIO()):
+        meta, = train(translator_scenario(exp, tsvs, PAIR_EPOCHS), (),
+                      device=device)
+    seconds = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    translator_launches = launch_split(recorder, start, counts())
+    losses, val = meta["metrics"][loss_key], meta["metrics"][val_key]
+    step_s = [s for _, s, _ in recorder.steps]
+    check(len(losses) == len(val) == PAIR_EPOCHS and all(
+        np.isfinite(x) and x > 0 for x in losses + val),
+        ("translator losses", losses, val))
+    check(len(step_s) == PAIR_EPOCHS * PAIR_TRAIN // PAIR_BATCH,
+          ("translator steps", len(step_s)))
+    check(all(n["mining"] == n["train_step"] == n["loss_validation"] == 0
+              for n in translator_launches.values()),
+          ("the translator's path has no kernel", translator_launches))
+    first = recorder.batches[0][0]
+    say("imgtr", "translator P2pUNet (nested %d, dropout %.1f), L1, adam: "
+        "%d epochs of %d pairs in %d-pair batches (%s), %.2f s with "
+        "validation and checkpoints; %.4f s/step (%.4f-%.4f); loss %s, "
+        "validation loss %s (%s s); peak %.2f GB"
+        % (TRANSLATOR_MODEL["nested_levels"], TRANSLATOR_MODEL["dropout"],
+           PAIR_EPOCHS, PAIR_TRAIN, PAIR_BATCH, first.shape, seconds,
+           np.mean(step_s), min(step_s), max(step_s),
+           ["%.6f" % x for x in losses], ["%.6f" % x for x in val],
+           ["%.3f" % v["seconds"] for v in recorder.validations],
+           peak / 1e9))
+
+    # an epoch's loader batches, rerun from the epoch's seed
+    scenario = translator_scenario(exp, tsvs, PAIR_EPOCHS)
+    reseed_host(SEED)
+    again = list(initialize_dataset_loader(
+        (), "train", copy.deepcopy(scenario["data"]["train"]),
+        {"shuffle": True}))
+    check(len(again) == len(recorder.batches) and all(
+        np.array_equal(a, b) for (x, y), (u, v) in zip(
+            recorder.batches, again) for a, b in ((x, u), (y, v))),
+        "epoch 0's batches rerun from its seed")
+    say("imgtr", "epoch 0's %d batches through %s bit-identical when "
+        "rerun from its seed" % (len(recorder.batches), PAIR_TRANSFORM))
+
+    # Dropout on the card: the same generator state gives the same output
+    # (the layer alone: the net's transposed convolutions need not repeat
+    # bit for bit), and train output differs from eval
+    state = recorder.saved[PAIR_EPOCHS - 1]
+    model = initialize_network(None, device, copy.deepcopy(state)).model
+    drop = next(m for m in model.modules() if isinstance(m, Dropout))
+    x = torch.from_numpy(first[:2]).to(device).permute(0, 3, 1, 2)
+    h = torch.rand((2, 512, 2, 2), generator=torch.Generator(
+        device=device).manual_seed(SEED), device=device)
+    outs = []
+    with torch.no_grad():
+        for _ in range(2):
+            set_dropout_generator(model, torch.Generator(
+                device=device).manual_seed(SEED + 1))
+            model.train()
+            outs.append((drop(h), model(x)))
+        model.eval()
+        plain = model(x)
+    kept = float((outs[0][0] != 0).float().mean())
+    check(torch.equal(outs[0][0], outs[1][0]),
+          "dropout: same generator state, same output")
+    check(torch.equal(drop(h), h) and not torch.equal(outs[0][1], plain),
+          "dropout: eval is the identity, train != eval")
+    say("imgtr", "dropout on the card: one generator seed, one mask "
+        "(%.3f kept at p %.1f); max |train - eval| of the net %.3e"
+        % (kept, drop.p, float((outs[0][1] - plain).abs().max())))
+
+    # one step on the card against the CPU at 256 x 256
+    images, targets = recorder.batches[0]
+    card_cpu_image_step("imgtr", device, state, images[:2], targets[:2])
+
+    # 2. the joint N/D training
+    make_train_images(np.random.RandomState(SEED), images=JOINT_IMAGES)
+    for name, img in JOINT_IMAGES.items():  # square crops of phase 9's
+        JOINT_IMAGES[name] = np.ascontiguousarray(img[:JOINT_SIDE,
+                                                      :JOINT_SIDE])
+    names = sorted(JOINT_IMAGES)
+    db_pkl = os.path.join(root, "db.pkl")
+    cids = ["/smoke/%s" % name for name in names]
+    clusters = [i // 2 for i in range(len(names))]
+    with open(db_pkl, "wb") as handle:
+        pickle.dump({"train": {
+            "cids": cids, "cluster": clusters,
+            "qidxs": [2 * k for k in range(TRAIN_PAIRS)],
+            "pidxs": [2 * k + 1 for k in range(TRAIN_PAIRS)]},
+            "val": {
+            "cids": cids, "cluster": clusters,
+            "qidxs": [2 * k for k in range(
+                TRAIN_PAIRS, TRAIN_PAIRS + JOINT_VAL_PAIRS)],
+            "pidxs": [2 * k + 1 for k in range(
+                TRAIN_PAIRS, TRAIN_PAIRS + JOINT_VAL_PAIRS)]}}, handle)
+    exp = os.path.join(root, "joint")
+    recorder = PhaseRecorder(counts, keep=JOINT_EPOCHS - 2)
+    start = reset()
+    t = time.perf_counter()
+    with recorder.patches(), contextlib.redirect_stdout(io.StringIO()):
+        meta, = train(joint_scenario(exp, db_pkl, JOINT_EPOCHS), (),
+                      device=device)
+    seconds = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    joint_launches = launch_split(recorder, start, counts())
+    losses, val = meta["metrics"][loss_key], meta["metrics"][val_key]
+    check(len(losses) == len(val) == JOINT_EPOCHS and all(
+        np.isfinite(x) and x > 0 for x in losses + val),
+        ("joint losses", losses, val))
+    gem = joint_launches["gem_l2n"]
+    check(gem["mining"] > 0 and gem["loss_validation"] > 0
+          and gem["train_step"] == 0,
+          ("gem_l2n on the joint path: mining and loss validation, not the "
+           "step (it pools under autograd)", gem))
+    for name, n in joint_launches.items():
+        check(name == "gem_l2n" or sum(n.values()) == 0,
+              ("no chain kernel on the plain route", name, n))
+    step_s = [s for _, s, _ in recorder.steps]
+    train_minings = [m for m in recorder.minings
+                     if m["dataset"].mode == "train"]
+    mined = (TRAIN_QUERY_SIZE + TRAIN_POOL_SIZE) * len(train_minings)
+    mining_s = sum(m["seconds"] for m in train_minings)
+    say("joint", "P2pUNet -> VGG16-GeM (embed: null), contrastive, adam, "
+        "tuples of %d at %d px, %d a batch: %d epochs in %.2f s with mining, "
+        "validation and checkpoints; %.3f s/step (%d steps, %.1f tuples/s); "
+        "mining %.1f images/s; loss %s, validation loss %s (%s s each, "
+        "mining included); peak %.2f GB; launches %s"
+        % (2 + TRAIN_NEG_NUM, JOINT_SIDE, TRAIN_BATCH, JOINT_EPOCHS,
+           seconds, np.mean(step_s), len(step_s),
+           sum(n for _, _, n in recorder.steps) / sum(step_s),
+           mined / mining_s, ["%.6f" % x for x in losses],
+           ["%.6f" % x for x in val],
+           ["%.3f" % v["seconds"] for v in recorder.validations],
+           peak / 1e9, joint_launches))
+
+    # the embedder is bit-unchanged
+    first_weights = recorder.minings[0]["weights"]["embed"]
+    final = recorder.saved[JOINT_EPOCHS - 1]
+    for name, value in final["embed"]["model_state"].items():
+        check(torch.equal(value, first_weights[name].cpu()),
+              ("the frozen embedder moved", name))
+    moved = max(float((value - recorder.minings[0]["weights"]["translate"][
+        name].cpu()).abs().max()) for name, value
+        in final["translate"]["model_state"].items())
+    check(moved > 0, "the translator trained")
+    say("joint", "the embedder bit-unchanged over %d epochs (%d tensors); "
+        "the translator moved by up to %.3e"
+        % (JOINT_EPOCHS, len(first_weights), moved))
+
+    # mining with the kernels against the plain versions: the descriptors
+    # within DESC_ATOL, and the same negatives for every query whose picks
+    # the measured score error cannot reorder (its score gap over twice
+    # the error: each of two scores moves by at most the error); the
+    # other queries' gaps are printed
+    network = recorder.minings[0]["network"]
+    desc_err, reads = 0.0, []
+    for record in recorder.minings:
+        for name, weights in record["weights"].items():
+            network.networks[name].model.load_state_dict(weights)
+        np.random.set_state(record["rng"])
+        with mock.patch.object(pooling_kernel, "gem_l2n", gem_l2n_plain), \
+                contextlib.redirect_stdout(io.StringIO()):
+            record["dataset"].create_epoch_tuples(network)
+        plain, mined = record["dataset"].mined, record["mined"]
+        desc_err = max([desc_err] + [float(np.abs(plain[key] - mined[key])
+                                           .max())
+                                     for key in ("qvecs", "poolvecs")])
+        score_err = float(np.abs(plain["scores"] - mined["scores"]).max())
+        gaps = query_gaps(mined)
+        differing = [q for q, nidxs in enumerate(record["dataset"].nidxs)
+                     if nidxs != record["nidxs"][q]]
+        implied = [q for q, gap in enumerate(gaps) if gap > 2 * score_err]
+        check(not set(differing) & set(implied),
+              ("mined negatives, kernels against plain, where the score "
+               "error cannot reorder them", record["dataset"].mode,
+               differing, score_err))
+        reads.append("%s: score error %.2e, %d/%d queries gated, least "
+                     "gap %.2e%s" % (
+                         record["dataset"].mode, score_err, len(implied),
+                         len(gaps), min(gaps), "".join(
+                             "; query %d gap %.2e %s" % (
+                                 q, gaps[q], "differs" if q in differing
+                                 else "same") for q in range(len(gaps))
+                             if q not in implied)))
+    check(desc_err <= DESC_ATOL, ("mining descriptors vs plain", desc_err))
+    say("joint", "mining, kernels against plain: max |desc diff| %.2e "
+        "(tolerance %g); the same negatives for every gated query: %s"
+        % (desc_err, DESC_ATOL, " | ".join(reads)))
+
+    # loss validation with the kernels against its plain run, on the final
+    # weights: the composition (per image, through its wrappers) and the
+    # embedder alone (one padded bucket per batch)
+    record = recorder.validations[-1]
+    validation = record["validation"]
+    composed = recorder.minings[0]["network"]  # the run's, final weights
+    for name in composed.sequence:
+        composed.networks[name].model.load_state_dict(
+            final[name]["model_state"])
+    embedder = initialize_network(None, device, {"net": copy.deepcopy(
+        final["embed"])})
+    def spent(before, after):
+        return {name: after[name] - before[name] for name in after}
+
+    val_reads = {"composition": (record["seconds"], spent(record["before"],
+                                                          record["after"]))}
+    for tag, net in (("composition", composed), ("embedder", embedder)):
+        # the composition's run with the kernels is the stage's own last
+        # validation, on these weights
+        runs = [record["losses"]] if tag == "composition" else []
+        for plain in (True,) if tag == "composition" else (False, True):
+            np.random.set_state(record["rng"])
+            patch = mock.patch.object(pooling_kernel, "gem_l2n",
+                                      gem_l2n_plain) if plain \
+                else contextlib.nullcontext()
+            before = counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with patch, contextlib.redirect_stdout(io.StringIO()):
+                runs.append(validation.validate(net))
+            torch.cuda.synchronize()
+            if not plain:
+                val_reads[tag] = (time.perf_counter() - t,
+                                  spent(before, counts()))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(*runs))
+        check(rel <= DESC_ATOL, ("loss validation vs plain", tag, rel))
+        launched = val_reads[tag][1]
+        check(launched["gem_l2n"] > 0, ("gem_l2n in loss validation", tag))
+        say("joint", "loss validation of the %s, kernels against plain: "
+            "losses %s, max rel diff %.2e; %.3f s, launches %s"
+            % (tag, ["%.6f" % x for x in runs[0]], rel, val_reads[tag][0],
+               launched))
+
+    # one joint step on the card against the CPU at 256 x 256
+    dataset = train_minings[-1]["dataset"]
+    images, target = dataset[0]
+    tpl = [np.ascontiguousarray(img[:CHECK_SIDE, :CHECK_SIDE])
+           for img in images[:3]]
+    card_cpu_image_step("joint", device, final, [tpl], [target[:3]],
+                        chain=dataset.device_chain)
+
+    # the resumed epoch against the straight run: epoch 2's files as its
+    # save left them (its training file put back), the last epoch's gone
+    epochs_dir = os.path.join(exp, "epochs")
+    for name in os.listdir(epochs_dir):
+        if "_%02d." % JOINT_EPOCHS in name or name.endswith(
+                ("_best.ckpt", "_bestsofar.ckpt", "_last.ckpt")):
+            os.remove(os.path.join(epochs_dir, name))
+    kept = os.path.join(epochs_dir, "learning_epoch_%02d.ckpt"
+                        % (JOINT_EPOCHS - 1))
+    os.replace(kept + ".kept", kept)
+    resumed_rec = PhaseRecorder(counts)
+    with resumed_rec.patches(), contextlib.redirect_stdout(io.StringIO()):
+        resumed, = train(joint_scenario(exp, db_pkl, JOINT_EPOCHS), (),
+                         device=device)
+    again = resumed["metrics"]
+    check(len(resumed_rec.minings) == 2 and again[loss_key][:-1]
+          == losses[:-1], ("a resume of the last epoch",
+                           len(resumed_rec.minings), again[loss_key]))
+    rel = max(abs(again[k][-1] - meta["metrics"][k][-1])
+              / abs(meta["metrics"][k][-1]) for k in (loss_key, val_key))
+    weights = max(float((value - resumed_rec.saved[JOINT_EPOCHS - 1][
+        "translate"]["model_state"][name]).abs().max()) for name, value
+        in final["translate"]["model_state"].items())
+    check(rel <= LOSS_RTOL, ("resumed epoch vs straight", rel))
+    say("joint", "epoch %d resumed from epoch %d's checkpoint files "
+        "(members %s) against the straight run: loss and validation loss "
+        "max rel diff %.2e, translator weights max |diff| %.2e"
+        % (JOINT_EPOCHS, JOINT_EPOCHS - 1,
+           sorted(n for n in os.listdir(epochs_dir) if "_%02d." % (
+               JOINT_EPOCHS - 1) in n), rel, weights))
+
+    # two steps with both members trained, alternating every step: the
+    # final weights, the embedder no longer frozen
+    network = initialize_network(None, device, copy.deepcopy(final))
+    network.networks["embed"].frozen = False
+    optimizer = initialize_optimizer(network, joint_optimizer(
+        embed=True, alternate=1, order="translate,embed"))
+    epoch = SupervisedEpoch(
+        DataLoader(dataset, batch_size=TRAIN_BATCH, **dataset.loader_params),
+        initialize_criterion({"loss": "contrastive", "margin": 0.7,
+                              "eps": 1e-6}),
+        batch_average=False, fakebatch=True).steps(0)
+    network.train()
+    order = []
+    for (images, targets), expected in zip(epoch.data_loader,
+                                           ("translate", "embed")):
+        before = {name: [p.detach().clone() for p in
+                         network.networks[name].model.parameters()]
+                  for name in network.sequence}
+        check(optimizer.active_names() == [expected],
+              ("alternation order", optimizer.active_names()))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        epoch._optimization_step(network, optimizer, images, targets)
+        torch.cuda.synchronize()
+        moved = [name for name in network.sequence if any(
+            not torch.equal(a, b) for a, b in zip(
+                before[name], network.networks[name].model.parameters()))]
+        check(moved == [expected], ("alternation moved", moved, expected))
+        order.append((expected, time.perf_counter() - t))
+    check((optimizer.current_iteration, optimizer.current_optimizer)
+          == (2, 0), ("alternation counters", optimizer.current_iteration,
+                      optimizer.current_optimizer))
+    say("joint", "alternate_iteration 1, both members trained: steps moved "
+        "%s (%s s), counters (iteration, optimizer) = (2, 0)"
+        % ([m for m, _ in order], ["%.3f" % s for _, s in order]))
+
+    counts()  # the counter and the recorded calls still agree
+    recording.stop()
+    shutil.rmtree(root, ignore_errors=True)
+    PAIR_IMAGES.clear()
+    JOINT_IMAGES.clear()
+    # the kernel at every input the phase gave it (512 px squares' maps in
+    # mining, the one-image launches of the composition's loss validation,
+    # the embedder's padded buckets)
+    check(set(pool_dtypes) == {torch.float32},
+          ("phase 15's pool maps", set(pool_dtypes)))
+    pool = gem_path_phase("image train", pooling_kernel, gem_l2n_plain,
+                          pool_inputs, gen, device)
+    say("imgtr", "phase 15: %.1f s | %s" % (time.perf_counter() - t_phase,
+                                            smi))
+    return {"translator": translator_launches, "joint": joint_launches,
+            "loss_validation": {tag: n for tag, (_, n) in val_reads.items()},
+            "pool": pool}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; it runs on a card only")
@@ -2577,6 +3352,10 @@ def main():
         device, db, queries, gnd, {2048: whiten_path, 1024: whiten_1024,
                                    CLAHE_DIM: path["whiten_path"]},
         clahe, lab_trilinear, pooling_kernel, gem_l2n_plain, gen, smi)
+    # 15. image-model training: the translator, and jointly with the
+    # embedder
+    image_train = image_train_phase(device, clahe, lab_trilinear,
+                                    pooling_kernel, gem_l2n_plain, gen, smi)
     sources = {"lab_n": ("mdir_tpu_torch/csrc/lab_n.cu",
                          "mdir_tpu/ops/lab_trilinear.py:493",
                          ["mdir_tpu/ops/lab_trilinear.py:359"],
@@ -2597,7 +3376,8 @@ def main():
         "launches": launches,
         "max_abs_err": max([max_err, resnet_pool["max_abs_err"],
                             vgg_pool["max_abs_err"], trained["gem_err"],
-                            unet_pool["max_abs_err"]]
+                            unet_pool["max_abs_err"],
+                            image_train["pool"]["max_abs_err"]]
                            + [pool["max_abs_err"]
                               for pool in stack["pools"].values()]),
         **resnet_pool["timed"], "library_ms": None,
@@ -2610,7 +3390,10 @@ def main():
                                  small_batch=unet_pool["small_batch"]),
         "eval_stack_path": {tag: dict(pool["timed"],
                                       small_batch=pool["small_batch"])
-                            for tag, pool in stack["pools"].items()}}]
+                            for tag, pool in stack["pools"].items()},
+        "image_train_path": dict(image_train["pool"]["timed"],
+                                 small_batch=image_train["pool"][
+                                     "small_batch"])}]
     for name, (source, replaces, also, wrappers) in sources.items():
         kernels.append(dict(
             {"name": name, "route": "cuda", "source": source,
@@ -2674,6 +3457,12 @@ def main():
         entry["eval_stack_path_launches"] = {
             run: counted.get(entry["name"], 0)
             for run, counted in stack["launches"].items()}
+        entry["image_train_path_launches"] = {
+            "translator": image_train["translator"][entry["name"]],
+            "joint": image_train["joint"][entry["name"]],
+            "loss_validation_rerun": {
+                tag: n[entry["name"]]
+                for tag, n in image_train["loss_validation"].items()}}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

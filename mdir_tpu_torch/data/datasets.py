@@ -1,13 +1,26 @@
 """The datasets of ``mdir_tpu/data/datasets.py``: training tuples with
 per-epoch hard-negative mining (``TuplesDataset``, cirtorch
-``traindataset.py``) and the infer stage's image list (``CirImageList``,
+``traindataset.py``), the image tuples of image-to-image training
+(``RandomImageTuple``, ``PregeneratedImageTuple``: day/night pairs from a
+file reader) and the infer stage's image list (``CirImageList``,
 ``data/images.ImagesFromList``).
+
+An image-tuple dataset reads one column of a file (``data_key``; each cell
+a list of image names, one row a place) and picks, per row, the images its
+``idx`` names (underscore-joined ``any`` | ``different`` | an int, negative
+from the end): ``RandomImageTuple`` anew at each epoch's ``prepare_epoch``
+from ``np.random.randint``, ``PregeneratedImageTuple`` once at init from
+``random.Random(0).randrange``, as the JAX package draws them. An item is
+the picked images decoded (``imread_rgb``, PIL imported there; a scenario
+built in Python may give a ``loader`` from a path to an image) and run
+through the transform together, so one draw crops or flips them alike.
 
 Each epoch ``create_epoch_tuples`` draws the query subset and the negative
 pool from the global numpy RNG in the JAX package's order, extracts the
-queries' and the pool's descriptors in eval mode through the network's
-batched extractor (``parallel/extract.py::network_extractor``: uint8 pixels,
-the device chain and the GeM+L2N kernel on the card), ranks the pool on the
+queries' and the pool's descriptors in eval mode by the path extraction
+takes (``parallel/extract.py::descriptors_of``: a composition's or a single
+net's batched extractor, with uint8 pixels, the device chain and the
+GeM+L2N kernel on the card, or the per-image path), ranks the pool on the
 network's device and picks, per query, the first ``nnum`` pool images of
 distinct clusters other than the query's on the host. The last mining's
 descriptors, scores, ranks and picked rank positions stay in ``mined``;
@@ -24,17 +37,97 @@ it needs PIL.
 """
 import os
 import pickle
+import random
 
 import numpy as np
 import torch
 
 from ..ops.ranking import rank_database
-from ..parallel.extract import network_extractor
+from ..parallel.extract import descriptors_of
 from ..tools.utils import path_join, validate_hash
 from .images import ImagesFromList, as_uint8, imresize, pil_loader
 from .loaders import DataLoader, collate_tuples
+from .readers import initialize_file_reader
 
-NOT_PORTED = "ROADMAP §1.6"
+
+def imread_rgb(path):
+    """Decode an image file to RGB with PIL (truncated files tolerated)."""
+    from PIL import Image, ImageFile
+
+    ImageFile.LOAD_TRUNCATED_IMAGES = True
+    with open(path, "rb") as handle:
+        return Image.open(handle).convert("RGB")
+
+
+class RandomImageTupleDataset:
+    """Image tuples (e.g. day/night pairs) with per-epoch random picks."""
+
+    loader_params = {}
+
+    def __init__(self, data, transform, dataset, data_key, image_dir, idx,
+                 loader=imread_rgb):
+        if data:
+            raise ValueError("%s takes no stage data" % type(self).__name__)
+        with initialize_file_reader(dataset, keys=[data_key]) as reader:
+            image_list = reader.get()[data_key]
+        self.image_list = [[path_join(image_dir, y) for y in x]
+                           for x in image_list]
+        self.transform = transform
+        self.loader = loader
+        if isinstance(idx, str):
+            idx = [x if x in {"any", "different"} else int(x)
+                   for x in idx.split("_")]
+        self.idx = idx
+        self.epoch_images = None
+
+    @staticmethod
+    def get_idx(idx, length, previous_idxs, rand):
+        if idx == "any":
+            return rand(length)
+        if idx == "different":
+            idxs = [x for x in range(length) if x not in previous_idxs]
+            return idxs[rand(len(idxs))]
+        if isinstance(idx, (list, tuple)):
+            return rand(idx[0] or 0, idx[1] or length)
+        if idx < 0:
+            idx = length + idx
+        if not 0 <= idx < length:
+            raise IndexError("image index %d of a tuple of %d" % (idx, length))
+        return idx
+
+    def _generate_epoch_images(self, rand):
+        self.epoch_images = []
+        for possible in self.image_list:
+            idxs = []
+            for i in self.idx:
+                idxs.append(self.get_idx(i, len(possible), idxs, rand))
+            self.epoch_images.append([possible[i] for i in idxs])
+
+    def prepare_epoch(self, network):
+        del network  # the picks are random, not mined
+        self._generate_epoch_images(np.random.randint)
+
+    def __len__(self):
+        return len(self.image_list)
+
+    def __getitem__(self, index):
+        images = [self.loader(x) for x in self.epoch_images[index]]
+        if self.transform:
+            images = self.transform(*images)
+        return images
+
+
+class PregeneratedImageTupleDataset(RandomImageTupleDataset):
+    """Tuples fixed at init with seed 0, so a resume sees the same ones."""
+
+    def __init__(self, data, transform, dataset, data_key, image_dir, idx,
+                 loader=imread_rgb):
+        super().__init__(data, transform, dataset, data_key, image_dir, idx,
+                         loader)
+        self._generate_epoch_images(random.Random(0).randrange)
+
+    def prepare_epoch(self, network):
+        del network
 
 
 def cid2filename(cid, prefix):
@@ -118,15 +211,15 @@ class TuplesDataset:
         return self.create_epoch_tuples(network)
 
     def descriptors(self, network, indices):
-        """(D, len(indices)) descriptors of images ``indices`` through the
-        network's batched extractor, in eval mode."""
-        network.eval()
-        extractor = network_extractor(network, self.transform)
-        uint8 = extractor.host_dtype == np.uint8
-        for i, idx in enumerate(indices):
-            img = self.load(idx)
-            extractor.add(i, as_uint8(img) if uint8 else self.transform(img))
-        return extractor.finish(len(indices))
+        """(D, len(indices)) descriptors of images ``indices`` in eval mode,
+        by the extraction path the network takes
+        (``parallel/extract.py::descriptors_of``)."""
+        def decoded(uint8):
+            for idx in indices:
+                img = self.load(idx)
+                yield as_uint8(img) if uint8 else self.transform(img)
+
+        return descriptors_of(network, decoded, len(indices), self.transform)
 
     def create_epoch_tuples(self, network):
         """Re-mine hard negatives with the current network."""
@@ -237,6 +330,8 @@ def cir_image_list_dataset(data, transform, **params):
 
 
 DATASET_LABELS = {
+    "RandomImageTuple": RandomImageTupleDataset,
+    "PregeneratedImageTuple": PregeneratedImageTupleDataset,
     "CirTuples": cir_tuples_dataset,
     "CirImageList": cir_image_list_dataset,
 }
@@ -257,11 +352,8 @@ def initialize_dataset(data, stage, transform, params):
         raise RuntimeError("Unsupported stage '%s'" % stage)
     label = params.pop("name")
     if label not in DATASET_LABELS:
-        raise NotImplementedError(
-            "dataset %r is not ported yet (the port has CirTuples and "
-            "CirImageList; the image-tuple datasets of image-to-image "
-            "nets: %s)"
-            % (label, NOT_PORTED))
+        raise KeyError("unknown dataset %r (the port has %s)"
+                       % (label, sorted(DATASET_LABELS)))
     return DATASET_LABELS[label](data, transform=transform, **params)
 
 

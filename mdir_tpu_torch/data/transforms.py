@@ -21,11 +21,20 @@ device)``, which the extractor, the translator, the infer stage and the
 training epoch call with their network's device; it is the card
 (``"cuda"``) until then, and raises without one.
 
-Labels that raise, each with its reason (``NOT_PORTED``): the random
-augmentations and the two shape transforms beside them, which need the JAX
-package's draw order from Python's and numpy's generators, and
-``add_edgesdollar_fromrgb``, which needs ``cv2.ximgproc`` and a model file.
+The augmentations (``random_crop``, ``mirror``, ``center_crop``,
+``downscale``, ``scalecrop``, ``gaussian_noise``) take ``*pics`` and apply
+one draw to every image of a tuple. They draw from Python's ``random`` and
+numpy's global generator in the JAX package's order, so under the same
+seeds (the training epoch reseeds both with ``seed + epoch``) they crop,
+flip and add noise as the JAX package does, bit for bit. ``downscale``
+resizes as PIL's ``BILINEAR`` and ``scalecrop`` as ``cv2.resize``'s
+``INTER_LINEAR``, both without PIL or cv2 (``ops/resize.py``).
+
+The one label that raises (``NOT_PORTED``) is ``add_edgesdollar_fromrgb``:
+it needs ``cv2.ximgproc`` and a model file that is not in the repository.
 """
+import random
+
 import numpy as np
 import torch
 
@@ -34,6 +43,8 @@ from ..ops import clahe as clahe_ops
 from ..ops import colorspace as cs
 from ..ops import histogram as hist_ops
 from ..ops import lab_trilinear, preprocess
+from ..ops.resize import cv2_linear_f32, pil_bilinear_u8
+from ..tools.utils import parse_tuple
 
 
 def exact_u8(img):
@@ -204,6 +215,109 @@ class NanCheck(GenericTransform):
         for pic in pics:
             if np.isnan(pic).any():
                 raise ValueError("Nan value occured in input")
+        return pics
+
+
+#
+# Augmentations
+#
+
+class RandomCrop(GenericTransform):
+    def __init__(self, size):
+        super().__init__({"size": parse_tuple(size, int)})
+
+    def __call__(self, *pics):
+        th, tw = self.params["size"] if len(self.params["size"]) == 2 \
+            else self.params["size"] * 2
+        h, w = pics[0].shape[:2]
+        i = random.randint(0, h - th)
+        j = random.randint(0, w - tw)
+        return [x[i:i + th, j:j + tw] for x in pics]
+
+
+class RandomHorizontalFlip(GenericTransform):
+    def __init__(self, p=0.5):
+        super().__init__({"p": float(p)})
+
+    def __call__(self, *pics):
+        if random.random() < self.params["p"]:
+            return [np.flip(x, axis=1) for x in pics]
+        return pics
+
+
+class CenterCrop(GenericTransform):
+    def __init__(self, size):
+        super().__init__({"size": np.array(parse_tuple(size, int))[::-1]})
+
+    def __call__(self, *pics):
+        acc = []
+        for pic in pics:
+            pad = (np.array(pic.shape[:2]) - self.params["size"]) / 2
+            y0, y1 = int(np.floor(pad[0])), -int(np.ceil(pad[0])) or None
+            x0, x1 = int(np.floor(pad[1])), -int(np.ceil(pad[1])) or None
+            acc.append(pic[y0:y1, x0:x1])
+        return acc
+
+
+class Downscale(GenericTransform):
+    """Smaller side down to ``size`` when the image (or its channel count)
+    exceeds it: PIL's BILINEAR resize of ``(pic * 255).astype(uint8)``, a
+    truncation as in the JAX package, then / 255."""
+
+    def __init__(self, size):
+        super().__init__({"size": int(size)})
+
+    def __call__(self, *pics):
+        size = self.params["size"]
+        acc = []
+        for pic in pics:
+            if max(pic.shape) > size:
+                h, w = pic.shape[:2]
+                if w < h:
+                    new = (size, int(size * h / w))
+                else:
+                    new = (int(size * w / h), size)
+                pic = pil_bilinear_u8((pic * 255).astype(np.uint8), new) \
+                    .astype(np.float32) / 255.0
+            acc.append(pic)
+        return acc
+
+
+class RandomScaleCrop(GenericTransform):
+    """Random scale (bounds) + random crop, crop then resize (cv2's
+    INTER_LINEAR on float32) to ``size`` (width_height)."""
+
+    def __init__(self, size, scale=(0.5, 0.8)):
+        super().__init__({"size": np.array(parse_tuple(size, int)),
+                          "scale": parse_tuple(scale, float)})
+
+    def __call__(self, *pics):
+        if len(pics) == 1 or pics[0].shape[:2] == pics[1].shape[:2]:
+            if (pics[0].shape[:2] == self.params["size"][::-1]).all():
+                return pics
+
+        lo, hi = self.params["scale"]
+        scale = random.random() * (hi - lo) + lo
+        cropped_size = np.ceil(self.params["size"][::-1] / scale).astype(int)
+        assert (np.array(pics[0].shape[:2]) >= cropped_size).all()
+        offs = [random.randint(0, x)
+                for x in (np.array(pics[0].shape[:2]) - cropped_size)]
+        ys, ye = offs[0], offs[0] + cropped_size[0]
+        xs, xe = offs[1], offs[1] + cropped_size[1]
+        return [cv2_linear_f32(pic[ys:ye, xs:xe], tuple(self.params["size"]))
+                for pic in pics]
+
+
+class AdditiveGaussianNoise(GenericTransform):
+    """Gaussian noise on the first image only, clipped to [0, 1]."""
+
+    def __init__(self, sigma):
+        super().__init__({"sigma": float(sigma)})
+
+    def __call__(self, *pics):
+        pics = list(pics)
+        noise = np.random.normal(0, self.params["sigma"], pics[0].shape)
+        pics[0] = np.clip(pics[0] + noise, 0, 1).astype(np.float32)
         return pics
 
 
@@ -388,6 +502,13 @@ TRANSFORMS = {
     "stackbatch": StackBatch,
     "nan_check": NanCheck,
 
+    "random_crop": RandomCrop,
+    "mirror": RandomHorizontalFlip,
+    "center_crop": CenterCrop,
+    "downscale": Downscale,
+    "scalecrop": RandomScaleCrop,
+    "gaussian_noise": AdditiveGaussianNoise,
+
     "add_const": AddConstantChannel,
     "tospace": ToColorspace,
     "add_intensity_fromrgb": AddIntensityFromRgb,
@@ -403,18 +524,7 @@ TRANSFORMS = {
     "gamma_equalize": GammaEqualize,
 }
 
-_RNG_ORDER = ("the JAX package draws it from Python's random and numpy's "
-              "global generator, reseeded each epoch; the port must draw in "
-              "the same order (ROADMAP queue 1 item 5)")
-_WITH_AUGMENTATIONS = ("it comes with the random augmentations of ROADMAP "
-                       "queue 1 item 5")
 NOT_PORTED = {
-    "random_crop": _RNG_ORDER,
-    "mirror": _RNG_ORDER,
-    "center_crop": _WITH_AUGMENTATIONS,
-    "downscale": _WITH_AUGMENTATIONS,
-    "scalecrop": _RNG_ORDER,
-    "gaussian_noise": _RNG_ORDER,
     "add_edgesdollar_fromrgb": "it needs cv2.ximgproc and a structured-edge "
                                "model file that is not in the repository",
 }

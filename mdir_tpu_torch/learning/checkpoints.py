@@ -20,7 +20,11 @@ A composition's checkpoint has two forms on disk, both read here
 (``_expand_multinet``): the member payloads embedded under
 ``_networks_included`` in one file (the reference's single-file ``.pth``,
 the paper's form), or ``_network_names`` naming sibling files of an
-``epochs/`` directory (what the JAX package writes).
+``epochs/`` directory (JAX ``checkpoints.py:100-150``). The port writes the
+second, as the JAX package does: each member's payload in its own
+``<member>_epoch_%02d.ckpt`` (a frozen member once, as
+``<member>_frozen.ckpt``, and linked), and the ``net`` file the header with
+``_network_names``; a resume reads the members back through it.
 """
 import os
 import pickle
@@ -163,6 +167,9 @@ class Checkpoints:
         when = _Cadence(epoch, self.store_every, self.checkpoint_every,
                         is_last)
         os.makedirs(self.directory, exist_ok=True)
+        if len(networks_state) > 1:
+            networks_state["net"]["_network_names"] = [
+                name for name in networks_state if name != "net"]
         for key, state in networks_state.items():
             assert "/" not in key
             self._place_network(key, state, when, is_best, is_last)
@@ -238,13 +245,11 @@ class Checkpoints:
         for epoch in reversed(range(nepochs)):
             training_path = self._file(FNAME_TRAINING % (epoch + 1))
             if training_path.exists():
-                network = load_checkpoint_any(
-                    self._file("net" + SUFFIX_EPOCH % (epoch + 1)))
-                if "_network_names" in network:
-                    raise NotImplementedError(
-                        "multi-network checkpoints come with the composition "
-                        "slice (ROADMAP §1.6)")
-                return {"net": network}, load_checkpoint_any(training_path)
+                suffix = SUFFIX_EPOCH % (epoch + 1)
+                sibling = lambda name: load_checkpoint_any(
+                    self._file(name + suffix))
+                return (_expand_multinet(sibling("net"), sibling),
+                        load_checkpoint_any(training_path))
         return None
 
     @classmethod

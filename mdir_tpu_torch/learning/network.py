@@ -12,16 +12,19 @@ defer to the checkpoint's with ``load_from_checkpoint``), or from a training
 checkpoint on resume. ``CirNetwork`` injects the model's mean/std as data
 defaults and puts GeM's ``p`` in a ``pool`` parameter group with 10x the
 learning rate and no weight decay. Descriptor models keep the reference's
-D x N output convention at ``__call__``. BatchNorm stays frozen in training
-(``models/layers.py``).
+D x N output convention at ``__call__``. A retrieval trunk's BatchNorm stays
+frozen in training; a U-Net's is live in train mode (``models/layers.py``).
 
 ``SequentialNetwork`` composes two networks (a U-Net translator, then an
 embedder) and presents them as one: the tail's wrappers move up to the
 composition, the head's data defaults become its defaults, and its
 checkpoint is the JAX package's multi-net payload (each member's payload
 under its name, a ``net`` header with ``sequence`` and
-``network_hierarchy``). Training a composition needs
-``OptimizerAlternation`` (ROADMAP §1.6), so ``train()`` raises.
+``network_hierarchy``). In training (JAX ``network.py:420-448``) its
+``train()`` puts each member that is not frozen in train mode,
+``freeze(name)`` freezes one member (an ``optimizer: <name>: null`` in the
+scenario does so), and ``parameters(opts, name)`` gives one member's
+groups for its optimizer (``optim/optimizers.py::OptimizerAlternation``).
 """
 import copy
 import time
@@ -62,24 +65,32 @@ def _inherit_runtime(requested, stored):
 
 
 def _image_batch(image, device):
-    """One image for the per-image path as a (1, C, H, W) float tensor on
-    ``device``: an HWC array (the host transform's output), or a 4-d NCHW
-    tensor passed on between networks."""
+    """Images for the per-image path as float NCHW tensors on ``device``:
+    an HWC array (the host transform's output) as (1, C, H, W), an NHWC
+    array (a loader's stacked batch) as (N, C, H, W), a 4-d NCHW tensor
+    passed on between networks as it is, and a list (a tuple batch) item by
+    item."""
+    if isinstance(image, list):
+        return [_image_batch(item, device) for item in image]
     if torch.is_tensor(image) and image.dim() == 4:
         return image.to(device)
     x = torch.as_tensor(np.asarray(image, np.float32), device=device)
+    if x.dim() == 4:
+        return x.permute(0, 3, 1, 2).contiguous()
     return x.permute(2, 0, 1)[None].contiguous()
 
 
 def _restored_model(model_params, model_state, device):
     """The model of ``model_params`` with ``model_state`` (flax variables or
     a torch state dict) loaded. The strict load sets every weight, so the
-    model is built without its ``pretrained`` trunk features: a checkpoint
-    of a net fine-tuned from them loads without the features file."""
+    model is built without its seeded draw and without its ``pretrained``
+    trunk features: a checkpoint of a net fine-tuned from them loads
+    without the features file."""
     model_params = dict(model_params)
     if "pretrained" in model_params:
         model_params["pretrained"] = False
-    model = models_lib.initialize_model(model_params, device=device)
+    model = models_lib.initialize_model(model_params, device=device,
+                                        seed=None)
     return _restore_weights(model, model_state)
 
 
@@ -116,8 +127,9 @@ class SingleNetwork:
         return self.model.device
 
     def train(self):
-        """The train stage (a frozen network stays in eval). BatchNorm keeps
-        its running statistics in both stages."""
+        """The train stage and the model's train mode (a frozen network
+        stays in eval): a U-Net's BatchNorm is then live and its Dropout
+        drops; a retrieval trunk's BatchNorm keeps its running statistics."""
         if not self.frozen:
             self.stage = TRAIN
             self.model.train()
@@ -128,14 +140,20 @@ class SingleNetwork:
         self.model.eval()
         return self
 
-    def freeze(self):
+    def freeze(self, net="net"):
+        assert net == "net", net
         self.frozen = True
         return self.eval()
 
-    def parameters(self, _optimizer_opts):
+    def trainables(self):
+        """The parameters the optimizer steps: none when frozen."""
+        return [] if self.frozen else list(self.model.parameters())
+
+    def parameters(self, _optimizer_opts, net="net"):
         """Trainable parameters for the optimizer (None when frozen):
         ``{"params": {name: param}, "labels": {name: group}, "opts":
         {group: {lr_multiplier, weight_decay}}}``."""
+        assert net == "net", net
         if self.frozen:
             return None
         params = OrderedDict(self.model.named_parameters())
@@ -269,8 +287,8 @@ class CirNetwork(SingleNetwork):
         runtime["data"] = data
         params["runtime"] = runtime
 
-    def parameters(self, optimizer_opts):
-        groups = super().parameters(optimizer_opts)
+    def parameters(self, optimizer_opts, net="net"):
+        groups = super().parameters(optimizer_opts, net)
         if groups is not None:
             for name in groups["labels"]:
                 # GeM's p (``pool.p``, Rpool's ``pool.rpool.p``); Rpool's
@@ -388,9 +406,13 @@ class SequentialNetwork:
         return image
 
     def train(self):
-        raise NotImplementedError(
-            "training a composition needs OptimizerAlternation, which is "
-            "not ported yet (ROADMAP §1.6)")
+        """Each member that is not frozen in train mode; a frozen
+        composition stays in eval."""
+        if not self.frozen:
+            for name in self.sequence:
+                self.networks[name].train()
+            self.stage = TRAIN
+        return self
 
     def eval(self):
         for name in self.sequence:
@@ -398,12 +420,31 @@ class SequentialNetwork:
         self.stage = EVAL
         return self
 
-    def freeze(self):
+    def freeze(self, net=None):
+        """Freeze member ``net``, or every member and the composition."""
+        if net is not None:
+            self.networks[net].freeze()
+            return self
         for name in self.sequence:
             self.networks[name].freeze()
         self.frozen = True
         self.stage = EVAL
         return self
+
+    def trainables(self):
+        """The parameters of the members that are not frozen."""
+        return [p for name in self.sequence
+                for p in self.networks[name].trainables()]
+
+    def parameters(self, optimizer_opts, net=None):
+        """Member ``net``'s groups, or ``{member: groups}`` of the members
+        that are not frozen."""
+        if net is not None:
+            return self.networks[net].parameters(optimizer_opts)
+        reported = ((name, self.networks[name].parameters(optimizer_opts))
+                    for name in self.sequence)
+        return {name: groups for name, groups in reported
+                if groups is not None}
 
     @classmethod
     def initialize(cls, params, device="cuda"):
@@ -510,7 +551,7 @@ def initialize_network(params, device="cuda", state=None, runtime=None):
     label = params.pop("type") if params else state["net"]["type"]
     if label not in NETWORKS:
         raise NotImplementedError("network %r is not ported yet (ROADMAP "
-                                  "§1.6)" % label)
+                                  "§1.7)" % label)
     cls = NETWORKS[label]
     if state:
         return cls.initialize_from_state(state, device, params, runtime)

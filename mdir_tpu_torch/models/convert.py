@@ -18,6 +18,8 @@ numpy arrays -- from a JAX model in memory or from its msgpack checkpoint --
 * a regional (Rpool) net's ``pool/p`` and ``pool_whiten`` -> cirtorch's
   ``pool.rpool.p`` and ``pool.whiten``
 
+``to_jax_variables`` reads a port state dict back into a flax tree.
+
 ResNet module names map to cirtorch's ``features`` indices: conv1 -> 0,
 bn1 -> 1, ``layer<L>_<B>`` -> ``<L+3>.<B>``, ``downsample_<i>`` ->
 ``downsample.<i>``. The spec-driven stacks (alexnet, vgg, densenet,
@@ -69,37 +71,74 @@ def _leaves(tree, prefix=()):
             yield prefix + (str(key),), np.asarray(value)
 
 
-def from_jax_variables(variables_np):
-    """flax variables of a model (numpy leaves) -> port state dict."""
-    state = OrderedDict()
+def _entries(variables_np):
+    """(collection, flax path, port name, to port, to flax) of every leaf
+    of a flax variables tree; ``to flax`` takes the port's array and the
+    flax leaf it replaces."""
     params = variables_np.get("params", {})
     regional = "pool_whiten" in params
+    same = (lambda v: v, lambda v, like: v)
+    oihw = (lambda v: np.transpose(v, (3, 2, 0, 1)),
+            lambda v, like: np.transpose(v, (2, 3, 1, 0)))
+    iohw = (lambda v: np.transpose(v, (2, 3, 0, 1)),
+            lambda v, like: np.transpose(v, (2, 3, 0, 1)))
+    dense = (lambda v: v.T, lambda v, like: v.T)
     for path, value in _leaves(params):
         if path == ("pool", "p"):
-            state[_module_name(("pool",), regional) + ".p"] = \
-                value.reshape(-1)
+            yield ("params", path, _module_name(("pool",), regional) + ".p",
+                   lambda v: v.reshape(-1),
+                   lambda v, like: v.reshape(like.shape))
             continue
         layer, leaf = path[-2], path[-1]
         name = _module_name(path[:-2], regional)
         if layer == "conv" and leaf == "kernel":
-            state[name + ".weight"] = np.transpose(value, (3, 2, 0, 1))
+            yield ("params", path, name + ".weight") + oihw
         elif layer == "dense" and leaf == "kernel":
-            state[name + ".weight"] = value.T
+            yield ("params", path, name + ".weight") + dense
         elif layer in ("conv", "dense") and leaf == "bias":
-            state[name + ".bias"] = value
+            yield ("params", path, name + ".bias") + same
         elif layer == "bn" and leaf in ("scale", "bias"):
-            state[name + (".weight" if leaf == "scale" else ".bias")] = value
+            yield ("params", path, name + (".weight" if leaf == "scale"
+                                           else ".bias")) + same
         elif leaf == "kernel" and value.ndim == 4:  # ConvTranspose: no scope
-            state[_module_name(path[:-1]) + ".weight"] = np.transpose(
-                value, (2, 3, 0, 1))
+            yield ("params", path,
+                   _module_name(path[:-1]) + ".weight") + iohw
         elif leaf == "bias" and layer not in ("conv", "dense", "bn"):
-            state[_module_name(path[:-1]) + ".bias"] = value
+            yield ("params", path, _module_name(path[:-1]) + ".bias") + same
         else:
             raise KeyError("cannot map JAX parameter %s" % "/".join(path))
     for path, value in _leaves(variables_np.get("batch_stats", {})):
         if path[-2] != "bn" or path[-1] not in ("mean", "var"):
             raise KeyError("cannot map JAX statistic %s" % "/".join(path))
         suffix = ".running_mean" if path[-1] == "mean" else ".running_var"
-        state[_module_name(path[:-2]) + suffix] = value
-    return OrderedDict((k, torch.from_numpy(np.array(v, np.float32)))
-                       for k, v in state.items())
+        yield ("batch_stats", path, _module_name(path[:-2]) + suffix) + same
+
+
+def _leaf(tree, path):
+    for key in path:
+        tree = tree[key]
+    return np.asarray(tree)
+
+
+def from_jax_variables(variables_np):
+    """flax variables of a model (numpy leaves) -> port state dict."""
+    return OrderedDict(
+        (name, torch.from_numpy(np.array(to_port(_leaf(
+            variables_np[collection], path)), np.float32)))
+        for collection, path, name, to_port, _ in _entries(variables_np))
+
+
+def to_jax_variables(state, like):
+    """The reverse reading: a port state dict -> flax variables shaped as
+    ``like`` (a flax variables tree of the same model, numpy leaves), each
+    leaf in ``like``'s dtype. Tests read a port model's weights and
+    BatchNorm statistics after a step in the JAX package's names with it."""
+    out = {}
+    for collection, path, name, _, to_flax in _entries(like):
+        old = _leaf(like[collection], path)
+        node = out.setdefault(collection, {})
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.asarray(to_flax(
+            state[name].detach().cpu().numpy(), old), old.dtype)
+    return out

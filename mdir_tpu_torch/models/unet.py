@@ -13,15 +13,19 @@ a reference state dict loads with ``load_state_dict(strict=True)``. OrigUNet
 is the classic conv-conv / maxpool / convT U-Net with the reference's
 attribute names.
 
-BatchNorm is frozen (its running statistics) and Dropout is the identity in
-eval: the port runs these nets for inference only. The convolutions are
-cuDNN's on the card, as the JAX package leaves them to XLA.
+``.train()`` and ``.eval()`` are the JAX modules' ``train=`` argument: in
+train mode BatchNorm is live (batch statistics, running statistics moved,
+``layers.BatchNorm2d``) and Dropout drops (``layers.Dropout``, from the
+generator the training epoch gives it); in eval mode BatchNorm uses its
+running statistics and Dropout is the identity. The factory builds them in
+eval mode. The convolutions are cuDNN's on the card, as the JAX package
+leaves them to XLA.
 """
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import FrozenBatchNorm2d
+from .layers import BatchNorm2d, Dropout
 
 
 class ImageModel(nn.Module):
@@ -48,7 +52,7 @@ def _item(item, channels):
         layer = nn.Conv2d if kind == "conv" else nn.ConvTranspose2d
         return layer(channels, out, k, s, p, bias=bias), out
     if kind == "bn":
-        return FrozenBatchNorm2d(channels), channels
+        return BatchNorm2d(channels), channels
     if kind == "relu":
         return nn.ReLU(), channels
     if kind == "lrelu":
@@ -56,7 +60,7 @@ def _item(item, channels):
     if kind == "tanh":
         return nn.Tanh(), channels
     if kind == "dropout":
-        return nn.Dropout(item[1]), channels
+        return Dropout(item[1]), channels
     if kind == "skip":
         block = SkipCat(item[1], channels)
         return block, block.out_channels

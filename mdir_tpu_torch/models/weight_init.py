@@ -18,7 +18,7 @@ import math
 
 import torch
 
-from .layers import FrozenBatchNorm2d
+from .layers import BatchNorm2d
 
 
 def _leaves(model):
@@ -34,7 +34,7 @@ def _normal(shape, generator, std=1.0, mean=0.0):
 
 def init_normal(generator, model):
     for module, name, param in _leaves(model):
-        if isinstance(module, FrozenBatchNorm2d):
+        if isinstance(module, BatchNorm2d):
             continue
         if (name == "weight" and param.dim() == 4) or name == "bias":
             param.copy_(_normal(param.shape, generator))
@@ -42,7 +42,7 @@ def init_normal(generator, model):
 
 def init_normal_p2p(generator, model):
     for module, name, param in _leaves(model):
-        if isinstance(module, FrozenBatchNorm2d):
+        if isinstance(module, BatchNorm2d):
             param.copy_(_normal(param.shape, generator, 0.02, 1.0)
                         if name == "weight" else torch.zeros(param.shape))
         elif name == "weight":
@@ -53,7 +53,7 @@ def init_normal_p2p(generator, model):
 
 def init_he_normal(generator, model):
     for module, name, param in _leaves(model):
-        if isinstance(module, FrozenBatchNorm2d):
+        if isinstance(module, BatchNorm2d):
             continue
         if name == "weight":
             fan_in = param[0].numel()

@@ -9,6 +9,16 @@ host-side max-side load resize.
 * Max-side load resize: PIL ``thumbnail((s, s), LANCZOS)``, only when the
   image is larger (cirtorch ``imresize``). PIL is imported inside the
   function that uses it.
+* The host augmentations' resizes without PIL or cv2 (the card's machine
+  has neither): ``pil_bilinear_u8`` is PIL's ``Image.resize(size,
+  BILINEAR)`` of a uint8 image bit for bit (Pillow's ``Resample.c``: a
+  triangle filter whose support is scaled by the downscale factor, weights
+  normalised in double and rounded to 22-bit fixed point, a horizontal
+  pass then a vertical one, each rounded to uint8), and
+  ``cv2_linear_f32`` is ``cv2.resize(img, (w, h))`` with ``INTER_LINEAR``
+  on float32 (samples at ``(i + 0.5) * in / out - 0.5``, clamped at the
+  borders, the fraction taken in double and the weights in float32, a
+  horizontal pass then a vertical one; no antialiasing).
 """
 import math
 
@@ -94,6 +104,102 @@ def max_side_resize_pil(img, imsize):
     img = img.copy()
     img.thumbnail((imsize, imsize), Image.LANCZOS)
     return img
+
+
+_PRECISION_BITS = 32 - 8 - 2  # Pillow's fixed point for 8-bit images
+
+
+def _pil_bilinear_coeffs(in_size, out_size):
+    """Pillow ``precompute_coeffs`` + ``normalize_coeffs_8bpc`` for the
+    bilinear filter: each output's first input and its fixed-point weights,
+    (out,) int64 and (out, taps) int64 (zero past an output's own taps).
+    Every output's sums run in Pillow's order, in double."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 1.0 * filterscale
+    ss = 1.0 / filterscale
+    taps = int(np.ceil(support)) * 2 + 1
+    center = (np.arange(out_size) + 0.5) * scale
+    first = np.maximum(np.trunc(center - support + 0.5), 0).astype(np.int64)
+    count = np.minimum(np.trunc(center + support + 0.5).astype(np.int64),
+                       in_size) - first
+    w = np.zeros((out_size, taps))
+    total = np.zeros(out_size)
+    for k in range(taps):
+        w[:, k] = np.where(k < count, np.maximum(
+            0.0, 1.0 - np.abs((k + first - center + 0.5) * ss)), 0.0)
+        total += w[:, k]
+    w = np.where(total[:, None] != 0.0,
+                 w / np.where(total == 0.0, 1.0, total)[:, None], w)
+    fixed = w * (1 << _PRECISION_BITS)
+    weights = np.where(fixed < 0, (-0.5 + fixed).astype(np.int64),
+                       (0.5 + fixed).astype(np.int64))
+    return first, weights
+
+
+def _pil_pass(img, coeffs, axis):
+    """One fixed-point pass along ``axis`` (0 or 1) of an (H, W, C) image
+    of uint8 values; int32 holds its sums (255 * 2^22 + rounding)."""
+    first, weights = coeffs
+    shape = [1, 1, 1]
+    shape[axis] = -1
+    acc = np.full(img.shape[:axis] + (len(first),) + img.shape[axis + 1:],
+                  1 << (_PRECISION_BITS - 1), np.int32)
+    for k in range(weights.shape[1]):
+        taken = np.take(img, np.minimum(first + k, img.shape[axis] - 1),
+                        axis=axis)
+        acc += taken * weights[:, k].astype(np.int32).reshape(shape)
+    return np.clip(acc >> _PRECISION_BITS, 0, 255)
+
+
+def pil_bilinear_u8(img, size):
+    """PIL ``Image.fromarray(img).resize(size, BILINEAR)`` as an array:
+    ``img`` (H, W, 3) or (H, W) uint8, ``size`` (width, height)."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or not (img.ndim == 2 or (
+            img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError("PIL's bilinear resize is copied for (H, W, 3) and "
+                         "(H, W) uint8 images (PIL's RGB and L), not %s %s"
+                         % (img.dtype, img.shape))
+    h, w = img.shape[:2]
+    out_w, out_h = (int(v) for v in size)
+    if (out_w, out_h) == (w, h):
+        return img.copy()
+    x = img.reshape(h, w, -1).astype(np.int32)
+    if out_w != w:
+        x = _pil_pass(x, _pil_bilinear_coeffs(w, out_w), 1)
+    if out_h != h:
+        x = _pil_pass(x, _pil_bilinear_coeffs(h, out_h), 0)
+    return x.astype(np.uint8).reshape((out_h, out_w) + img.shape[2:])
+
+
+def _cv2_linear_taps(in_size, out_size):
+    """cv2 ``resize`` INTER_LINEAR taps of one axis: (i0, i1, w0, w1)."""
+    scale = 1.0 / (out_size / in_size)
+    f = (np.arange(out_size) + 0.5) * scale - 0.5  # double, as cv2 5
+    i0 = np.floor(f).astype(np.int64)
+    f = (f - i0).astype(np.float32)
+    low = i0 < 0
+    f[low], i0[low] = 0, 0
+    high = i0 >= in_size - 1
+    f[high], i0[high] = 0, in_size - 1
+    i1 = np.minimum(i0 + 1, in_size - 1)
+    return i0, i1, np.float32(1) - f, f
+
+
+def cv2_linear_f32(img, size):
+    """``cv2.resize(img, size)`` (INTER_LINEAR) of a float32 (H, W) or
+    (H, W, C) image; ``size`` (width, height)."""
+    img = np.asarray(img, np.float32)
+    out_w, out_h = (int(v) for v in size)
+    if (out_h, out_w) == img.shape[:2]:
+        return img.copy()
+    x0, x1, a0, a1 = _cv2_linear_taps(img.shape[1], out_w)
+    y0, y1, b0, b1 = _cv2_linear_taps(img.shape[0], out_h)
+    extra = (1,) * (img.ndim - 2)
+    cols, lines = (1, -1) + extra, (-1, 1) + extra
+    rows = img[:, x0] * a0.reshape(cols) + img[:, x1] * a1.reshape(cols)
+    return rows[y0] * b0.reshape(lines) + rows[y1] * b1.reshape(lines)
 
 
 def bucket_shape(h, w, multiple=32, max_side=None):

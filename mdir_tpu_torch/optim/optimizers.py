@@ -5,8 +5,14 @@ coupled weight decay (``wd * p`` added to the gradient, which is what the
 JAX package's optax chain computes), one param group per label of
 ``Network.parameters`` with per-group options (CirNetwork's pool ``p`` gets
 10x the learning rate and no weight decay), and a learning-rate factor that
-the epoch schedulers set. The per-subnet ``composition: alternation`` of
-``SequentialNetwork`` waits for the composition slice (ROADMAP §1.6).
+the epoch schedulers set.
+
+A ``SequentialNetwork`` trains under ``composition: alternation``
+(``OptimizerAlternation``, JAX ``optimizers.py:162-258``): one optimizer per
+member, a member whose optimizer is ``null`` frozen; with
+``alternate_iteration`` N the members step in turn (in ``order``), N steps
+each, else all at once. Its state keeps each member's optimizer state and
+the ``alternation`` counters.
 """
 import torch
 
@@ -85,13 +91,110 @@ BASE_OPTIMIZERS = {
 }
 
 
+def initialize_base_optimizer(net_parameters, params):
+    params = dict(params)
+    algorithm = params.pop("algorithm")
+    return BASE_OPTIMIZERS[algorithm](net_parameters, **params)
+
+
+class OptimizerAlternation:
+    """Per-member optimizers with optional step alternation (GAN-style)."""
+
+    def __init__(self, optimizers, alternate_iteration, order):
+        if len(optimizers) == 1:
+            if alternate_iteration is not None:
+                raise ValueError("one optimizer does not alternate")
+            self.names = list(optimizers.keys())
+            self.optimizers = list(optimizers.values())
+        else:
+            if alternate_iteration is None:
+                raise ValueError("optimizers of several members need an "
+                                 "alternate_iteration and an order")
+            order = order.split(",")
+            if optimizers.keys() != set(order):
+                raise ValueError("order %s against optimizers %s"
+                                 % (order, sorted(optimizers)))
+            self.names = order
+            self.optimizers = [optimizers[x] for x in order]
+        self.alternate_iteration = alternate_iteration
+        self.current_iteration = 0
+        self.current_optimizer = 0
+
+    def __iter__(self):
+        return iter(self.names)
+
+    def __getitem__(self, key):
+        return self.optimizers[self.names.index(key)]
+
+    def zero_grad(self):
+        for opt in self.optimizers:
+            opt.zero_grad()
+
+    def active_names(self):
+        """Members whose optimizer steps at the next ``step``."""
+        if self.alternate_iteration:
+            return [self.names[self.current_optimizer]]
+        return list(self.names)
+
+    def step(self):
+        """Step the active optimizer(s), then move the counters."""
+        self.current_iteration += 1
+        if self.alternate_iteration:
+            self.optimizers[self.current_optimizer].step()
+            if self.current_iteration % self.alternate_iteration == 0:
+                self.current_optimizer = (self.current_optimizer + 1) \
+                    % len(self.optimizers)
+        else:
+            for opt in self.optimizers:
+                opt.step()
+
+    def set_lr_factor(self, factor):
+        for opt in self.optimizers:
+            opt.set_lr_factor(factor)
+
+    def state_dict(self):
+        state = {name: opt.state_dict()
+                 for name, opt in zip(self.names, self.optimizers)}
+        state["alternation"] = {"iteration": self.current_iteration,
+                                "optimizer": self.current_optimizer}
+        return state
+
+    def load_state_dict(self, state_dict):
+        state_dict = dict(state_dict)
+        alternation = state_dict.pop("alternation")
+        self.current_iteration = alternation["iteration"]
+        self.current_optimizer = alternation["optimizer"]
+        if state_dict.keys() != set(self.names):
+            raise ValueError("optimizer states of %s for members %s"
+                             % (sorted(state_dict), self.names))
+        for name, opt in zip(self.names, self.optimizers):
+            opt.load_state_dict(state_dict[name])
+
+
+OPTIMIZER_COMPOSITIONS = {
+    "alternation": OptimizerAlternation,
+}
+
+
+def initialize_optimizer_composition(network, params):
+    """One optimizer per member section; a ``null`` section freezes the
+    member."""
+    composition = dict(params.pop("composition"))
+    comp_cls = OPTIMIZER_COMPOSITIONS[composition.pop("type")]
+    acc = {}
+    for net in list(params.keys()):
+        if params[net] is not None:
+            acc[net] = initialize_base_optimizer(
+                network.parameters(params[net], net), params[net])
+        else:
+            network.freeze(net)
+    return comp_cls(acc, **composition)
+
+
 def initialize_optimizer(network, params):
     if not params:
         return None
     params = dict(params)
     if "composition" in params:
-        raise NotImplementedError(
-            "optimizer compositions (alternation) belong to the "
-            "SequentialNetwork slice, ROADMAP §1.6")
-    algorithm = params.pop("algorithm")
-    return BASE_OPTIMIZERS[algorithm](network.parameters(params), **params)
+        return initialize_optimizer_composition(network, params)
+    return initialize_base_optimizer(network.parameters(params), params)

@@ -686,19 +686,45 @@ def _decoded(images, image_size, bbxs, transform, uint8, loader=None):
             for i in range(len(dataset)))
 
 
-def extract_vectors_composed(network, images, image_size, transform,
-                             bbxs=None, max_batch=MAX_BATCH, loader=None):
-    """(D, N) descriptors of images (paths, or uint8 HWC arrays) through a
-    2-net composition's batched path."""
+def _composed_extractor(network, transform, max_batch=MAX_BATCH):
+    """A ComposedExtractor for a 2-net composition, and whether it takes
+    uint8 pixels (else the host transform's output)."""
     mean_std = _plain_ingress(transform)
     extractor = ComposedExtractor(network, normalize_mean_std=mean_std,
                                   max_batch=max_batch)
     if mean_std is None:
         on_device(transform, extractor.device)
-    for i, arr in enumerate(_decoded(images, image_size, bbxs, transform,
-                                     mean_std is not None, loader)):
+    return extractor, mean_std is not None
+
+
+def _extracted(extractor, arrays, n):
+    for i, arr in enumerate(arrays):
         extractor.add(i, arr)
-    return extractor.finish(len(images))
+    return extractor.finish(n)
+
+
+def _per_image_vectors(network, transform, arrays, n):
+    """(D, n) descriptors of ``network(arr)`` for the n ``arrays`` that
+    ``transform`` makes on the host, each through the network's own
+    wrappers."""
+    tail = network.networks[network.sequence[-1]] \
+        if hasattr(network, "sequence") else network
+    check_compute_dtype(tail.network_params.runtime.get("compute_dtype"))
+    on_device(transform, network.device)
+    out = np.zeros((network.meta["out_channels"], n), np.float32)
+    for i, arr in enumerate(arrays):
+        out[:, i] = network(arr).reshape(-1).cpu().numpy()
+    return out
+
+
+def extract_vectors_composed(network, images, image_size, transform,
+                             bbxs=None, max_batch=MAX_BATCH, loader=None):
+    """(D, N) descriptors of images (paths, or uint8 HWC arrays) through a
+    2-net composition's batched path."""
+    extractor, uint8 = _composed_extractor(network, transform, max_batch)
+    return _extracted(extractor, _decoded(images, image_size, bbxs,
+                                          transform, uint8, loader),
+                      len(images))
 
 
 def extract_vectors_per_image(network, images, image_size, transform,
@@ -706,43 +732,43 @@ def extract_vectors_per_image(network, images, image_size, transform,
     """(D, N) descriptors by the exact per-image path (JAX
     ``extract.py:980-988``): each image through the host transform, then
     ``network(image)`` with the network's own wrappers."""
-    tail = network.networks[network.sequence[-1]] \
-        if hasattr(network, "sequence") else network
-    check_compute_dtype(tail.network_params.runtime.get("compute_dtype"))
-    on_device(transform, network.device)
-    out = np.zeros((network.meta["out_channels"], len(images)), np.float32)
-    for i, arr in enumerate(_decoded(images, image_size, bbxs, transform,
-                                     False, loader)):
-        out[:, i] = network(arr).reshape(-1).cpu().numpy()
-    return out
+    return _per_image_vectors(network, transform, _decoded(
+        images, image_size, bbxs, transform, False, loader), len(images))
+
+
+def descriptors_of(network, decoded, n, transform, batch_size=MAX_BATCH):
+    """(D, n) descriptors of n images through ``network`` in eval mode.
+
+    A 2-net composition takes the composed batched path, a retrieval net
+    with the whiten/multiscale wrappers the single-net batched path, and any
+    other network the exact per-image path (JAX ``extract.py``'s
+    dispatch). ``decoded(uint8)`` yields the images in order: as (H, W, 3)
+    uint8 pixels when ``uint8`` is true, else through ``transform``.
+    """
+    network.eval()
+    if _composable(network):
+        extractor, uint8 = _composed_extractor(network, transform,
+                                               batch_size)
+    elif hasattr(network, "sequence") or _analyze_wrappers(network) is None \
+            or "pooling" not in network.model.meta:
+        return _per_image_vectors(network, transform, decoded(False), n)
+    else:
+        extractor = network_extractor(network, transform, batch_size)
+        uint8 = extractor.host_dtype == np.uint8
+    return _extracted(extractor, decoded(uint8), n)
 
 
 def extract_vectors_network(network, images, image_size, transform,
                             bbxs=None, batch_size=MAX_BATCH, loader=None):
     """(D, N) descriptors of image files (or uint8 HWC arrays) through
-    ``network``.
-
-    A 2-net composition takes the composed batched path, a retrieval net
-    with the whiten/multiscale wrappers the single-net batched path, and any
-    other network the exact per-image path. Files are decoded here by
+    ``network`` by ``descriptors_of``'s dispatch. Files are decoded here by
     ``loader`` (by default PIL), cropped to their bounding box and shrunk
     to ``image_size`` on their longer side.
     """
-    network.eval()
-    if _composable(network):
-        return extract_vectors_composed(network, images, image_size,
-                                        transform, bbxs=bbxs,
-                                        max_batch=batch_size, loader=loader)
-    if hasattr(network, "sequence") or _analyze_wrappers(network) is None \
-            or "pooling" not in network.model.meta:
-        return extract_vectors_per_image(network, images, image_size,
-                                         transform, bbxs=bbxs, loader=loader)
-    extractor = network_extractor(network, transform, batch_size)
-    uint8 = extractor.host_dtype == np.uint8
-    for i, arr in enumerate(_decoded(images, image_size, bbxs, transform,
-                                     uint8, loader)):
-        extractor.add(i, arr)
-    return extractor.finish(len(images))
+    return descriptors_of(
+        network, lambda uint8: _decoded(images, image_size, bbxs, transform,
+                                        uint8, loader),
+        len(images), transform, batch_size)
 
 
 @torch.no_grad()

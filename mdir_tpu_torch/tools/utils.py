@@ -1,5 +1,5 @@
-"""Small shared helpers: data root, parameter merging, paths, the artifact
-hash check and the local file of an artifact URL."""
+"""Small shared helpers: data root, parameter merging, the DSL's tuples,
+paths, the artifact hash check and the local file of an artifact URL."""
 import copy
 import hashlib
 import os
@@ -22,6 +22,13 @@ def get_data_root():
 def get_dataset_params(params, net_defaults):
     """Merge network-embedded data defaults under per-dataset params."""
     return copy.deepcopy({**net_defaults, **params})
+
+
+def parse_tuple(tpl, dtype=int):
+    """Parse ``"512_512"``-style underscore tuples of the transform DSL."""
+    if isinstance(tpl, str):
+        return tuple(dtype(x) for x in tpl.split("_"))
+    return tpl
 
 
 def path_join(prefix, path):

@@ -245,8 +245,9 @@ def test_runtime_routing_matches_jax():
 def test_scenario_build_resume_check_and_refusals(checkpoints):
     """A composition from its scenario section (a composition-level runtime
     routed to the members), its checkpoint reloaded against the declared
-    params, and what the port refuses: another declared sequence,
-    ``train()``; and bfloat16 compute routed to the embedder."""
+    params, what the port refuses (another declared sequence), ``train()``
+    as the JAX package's (members that are not frozen in train mode), and
+    bfloat16 compute routed to the embedder."""
     def scenario():
         return {"sequence": "translate,embed",
                 "runtime": {"wrappers": _eval_runtime(False)["wrappers"]},
@@ -270,8 +271,11 @@ def test_scenario_build_resume_check_and_refusals(checkpoints):
     with pytest.raises(AssertionError, match="sequence"):
         SequentialNetwork.initialize_from_state(copy.deepcopy(state), "cpu",
                                                 params=wrong)
-    with pytest.raises(NotImplementedError, match="§1.6"):
-        network.train()
+    network.freeze("embed")
+    assert network.train() is network and network.stage == "train"
+    assert network.networks["translate"].model.training
+    assert not network.networks["embed"].model.training
+    assert network.networks["embed"].stage == "eval"
     bf16 = load_network({"path": checkpoints["directory"],
                          "runtime": {"compute_dtype": "bfloat16"}},
                         device="cpu")
@@ -364,7 +368,7 @@ def test_per_image_path_matches_jax(checkpoints, image_files, monkeypatch):
     ours["translate"].wrappers = _build_stage_wrappers(
         "reflectpad_divisible:8," + PAD)
     assert not extract._composable(ours)
-    monkeypatch.setattr(extract, "extract_vectors_composed", None)
+    monkeypatch.setattr(extract, "_composed_extractor", None)
     transform = initialize_transforms(PLAIN, MEAN_STD)
     np.testing.assert_allclose(
         extract.extract_vectors_network(ours, image_files, 80, transform),

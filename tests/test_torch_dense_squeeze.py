@@ -283,7 +283,7 @@ def test_batched_extractor_matches_jax(alexnet_nets, monkeypatch):
     def per_image(*args, **kwargs):
         raise AssertionError("took the per-image path")
 
-    monkeypatch.setattr(extract, "extract_vectors_per_image", per_image)
+    monkeypatch.setattr(extract, "_per_image_vectors", per_image)
     ours = extract.extract_vectors_network(port_net, images, None,
                                            transform, batch_size=4)
     ref = np.stack([np.asarray(jax_net(jax_transform(

@@ -3,7 +3,9 @@
 The card's machine has torch, numpy and scipy but no JAX and no PIL, cv2,
 yaml or msgpack. A subprocess with those modules blocked imports every module
 of ``mdir_tpu_torch`` and ``chip_smoke`` itself, runs the lab CLAHE chain,
-trains (and resumes) a small net on in-memory images, and runs a U-Net
+trains (and resumes) a small net on in-memory images, trains a U-Net
+translator on in-memory image pairs through the six augmentations with loss
+validation, and then jointly with an embedder, and runs a U-Net
 composition's extraction and the eval entry's URL lookup, as the smoke
 does.
 """
@@ -38,7 +40,11 @@ trained = {"mdir_tpu_torch.stages.train", "mdir_tpu_torch.learning.learning",
            "mdir_tpu_torch.data.loaders", "mdir_tpu_torch.tools.stats",
            "mdir_tpu_torch.models.weight_init", "mdir_tpu_torch.models.unet",
            "mdir_tpu_torch.models.autoencoder", "mdir_tpu_torch.eval",
-           "mdir_tpu_torch.config.overlay"}
+           "mdir_tpu_torch.config.overlay", "mdir_tpu_torch.models.layers",
+           "mdir_tpu_torch.models.convert", "mdir_tpu_torch.ops.resize",
+           "mdir_tpu_torch.learning.validation",
+           "mdir_tpu_torch.learning.checkpoints",
+           "mdir_tpu_torch.data.transforms", "mdir_tpu_torch.data.readers"}
 assert trained <= set(sys.modules), trained - set(sys.modules)
 loaded = sorted(name for name in sys.modules
                 if name.split(".")[0] in %r and sys.modules[name] is not None)
@@ -203,6 +209,129 @@ def test_train_stage_runs_without_jax_cv2_pil():
     result = _run(["-c", RUN_TRAIN], ROOT)
     assert result.returncode == 0, result.stderr[-3000:]
     assert result.stdout.split("\n")[-2] == "trained 2"
+
+
+RUN_IMAGE_TRAIN = """
+import sys
+for name in %r:
+    sys.modules[name] = None
+import copy, json, os, pickle, tempfile
+import numpy as np
+import torch
+from mdir_tpu_torch.stages.train import train
+
+torch.set_num_threads(1)  # small nets, beside the other test workers
+
+rng = np.random.RandomState(0)
+IMAGES = {"im%%d" %% i: rng.randint(0, 256, (40, 48, 3)).astype(np.uint8)
+          for i in range(8)}
+
+
+def load(path):
+    return IMAGES[os.path.basename(path)]
+
+
+root = tempfile.mkdtemp()
+with open(os.path.join(root, "pairs.tsv"), "w") as handle:
+    handle.write("pair\\n")
+    for i in range(0, 8, 2):
+        handle.write(json.dumps(["im%%d" %% i, "im%%d" %% (i + 1)]) + "\\n")
+with open(os.path.join(root, "db.pkl"), "wb") as handle:
+    pickle.dump({"train": {"cids": ["/x/im%%d" %% i for i in range(8)],
+                           "cluster": [i // 2 for i in range(8)],
+                           "qidxs": [0, 2], "pidxs": [1, 3]}}, handle)
+ms = [[0.5] * 3, [0.5] * 3]
+augment = ("pil2np | downscale:36 | scalecrop:32_32:0.9_1 | mirror | "
+           "random_crop:32 | gaussian_noise:0.02 | totensor | normalize")
+unet = {"architecture": "p2p_unet", "in_channels": 3, "out_channels": 3,
+        "nested_levels": 1, "dropout": 0.5}
+
+
+def pairs(transforms, label):
+    return {"mean_std": ms, "transforms": transforms,
+            "dataset": {"name": label,
+                        "dataset": os.path.join(root, "pairs.tsv"),
+                        "data_key": "pair", "image_dir": "/x", "idx": "0_1",
+                        "loader": load}, "loader": {"batch_size": 2}}
+
+
+def scenario(directory, epochs, network, optimizer, validation, data):
+    network, optimizer = copy.deepcopy((network, optimizer))
+    return {"network": network,
+            "learning": {"type": "TrainValLearning",
+                         "checkpoints": {"directory": directory,
+                                         "store_every": 0,
+                                         "checkpoint_every": 1},
+                         "training": {"type": "EpochTraining",
+                                      "epochs": epochs, "deterministic": True,
+                                      "seed": 0, "criterion": data.pop("loss"),
+                                      "optimizer": optimizer,
+                                      "scheduler": None,
+                                      "epoch_iteration": {
+                                          "type": "SupervisedEpoch",
+                                          "data": "train",
+                                          "criterion": "default",
+                                          "batch_average": True,
+                                          "fakebatch": False}},
+                         "validation": validation},
+            "output": {"learning": {"progress": {"print_each": 0}}},
+            "data": data}
+
+
+translator = {"type": "SingleNetwork", "path": None, "model": unet,
+              "initialize": {"weights": "normal_p2p", "seed": 0},
+              "runtime": {"wrappers": "", "data": {"mean_std": ms}}}
+adam = {"algorithm": "adam", "lr": 1e-3, "weight_decay": 0}
+meta, = train(scenario(os.path.join(root, "unet"), 2, translator, adam,
+                       {"type": "SingleValidation", "data": "val",
+                        "criterion": "default", "network_overlay": None,
+                        "frequency": 1},
+                       {"loss": {"loss": "l1"},
+                        "train": pairs(augment, "RandomImageTuple"),
+                        "val": pairs("pil2np | center_crop:32 | totensor | "
+                                     "normalize", "PregeneratedImageTuple")}),
+              (), device="cpu")
+val = meta["metrics"]["val/learning/loss:total_avg.4"]
+assert len(val) == 2 and all(np.isfinite(val)), val
+embed = {"type": "CirNetwork", "path": None,
+         "model": {"architecture": "cirnet", "cir_architecture": "alexnet",
+                   "local_whitening": False, "pooling": "gem",
+                   "regional": False, "whitening": False,
+                   "pretrained": False},
+         "initialize": {"weights": "default", "seed": 0},
+         "runtime": {"wrappers": {"train": "cirfaketuplebatch",
+                                  "eval": ""}}}
+joint = {"type": "SequentialNetwork", "sequence": "translate,embed",
+         "translate": dict(translator, model=dict(unet, dropout=0.0)),
+         "embed": embed}
+optimizer = {"composition": {"type": "alternation",
+                             "alternate_iteration": None, "order": None},
+             "translate": adam, "embed": None}
+tuples = {"mean_std": ms, "transforms": "pil2np | totensor | normalize",
+          "dataset": {"name": "CirTuples", "dataset": "retrieval-SfM-mem",
+                      "split": "train", "image_size": 48, "neg_num": 1,
+                      "dataset_pkl": os.path.join(root, "db.pkl"),
+                      "image_dir": None, "query_size": 2, "pool_size": 8,
+                      "loader": load}, "loader": {"batch_size": 2}}
+for epochs in (1, 2):
+    meta, = train(scenario(os.path.join(root, "joint"), epochs,
+                           joint, optimizer, False,
+                           {"loss": {"loss": "contrastive"},
+                            "train": tuples}), (), device="cpu")
+losses = meta["metrics"]["train/learning/loss:total_avg.4"]
+assert len(losses) == 2 and all(np.isfinite(losses)), losses
+print("trained", len(val), len(losses))
+""" % (BLOCKED,)
+
+
+def test_image_training_runs_without_jax_cv2_pil():
+    """The translator's L1 training through the six augmentations with loss
+    validation, and the joint training of a composition resumed from its
+    multi-network checkpoint, on in-memory images with JAX, the JAX
+    package, cv2, PIL, yaml and msgpack blocked."""
+    result = _run(["-c", RUN_IMAGE_TRAIN], ROOT)
+    assert result.returncode == 0, result.stderr[-3000:]
+    assert result.stdout.split("\n")[-2] == "trained 2 2"
 
 
 RUN_COMPOSITION = """

@@ -74,16 +74,23 @@ def images():
     return u8, rng.rand(64, 96, 3).astype(np.float32)
 
 
+# the random augmentations and the two shape transforms beside them, held
+# against the JAX package's in tests/test_torch_augment.py
+AUGMENTATIONS = {"random_crop", "mirror", "center_crop", "downscale",
+                 "scalecrop", "gaussian_noise"}
+
+
 def test_registry_has_the_jax_labels():
-    """17 labels run; the random augmentations (and the two shape
-    transforms beside them) and the edge detector raise, with reasons."""
-    assert set(tf.TRANSFORMS) == set(LABELS)
+    """23 labels run (17 here, the six augmentations in
+    tests/test_torch_augment.py); the edge detector raises, with its
+    reason."""
+    assert set(tf.TRANSFORMS) == set(LABELS) | AUGMENTATIONS
     assert set(tf.TRANSFORMS) | set(tf.NOT_PORTED) == set(jax_tf.TRANSFORMS)
     assert not set(tf.TRANSFORMS) & set(tf.NOT_PORTED)
     for label, reason in tf.NOT_PORTED.items():
         with pytest.raises(NotImplementedError, match=label):
             tf.initialize_transforms("pil2np | %s:1" % label, MEAN_STD)
-        assert "queue 1 item 5" in reason or "ximgproc" in reason
+        assert "ximgproc" in reason
     with pytest.raises(KeyError):
         tf.initialize_transforms("no_such_label", MEAN_STD)
 

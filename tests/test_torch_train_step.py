@@ -292,8 +292,11 @@ def test_prepare_batch_pads_each_tuple():
             np.testing.assert_array_equal(got[:h, :w], img)
             assert not got[h:].any() and not got[:, w:].any()
         np.testing.assert_array_equal(target, [-1, 1, 0, 0, 0])
-    with pytest.raises(NotImplementedError):
-        prepare_batch([images[0][0]], [targets[0]])
+    # an image batch (JAX ``prepare_batch``'s flat list): one bucket,
+    # stacked at one shape, its label targets concatenated
+    (batch, valid, target), = prepare_batch([images[0][0]], [targets[0]])
+    assert valid is None and batch.shape == (1,) + images[0][0].shape
+    np.testing.assert_array_equal(target, targets[0])
 
 
 @pytest.mark.parametrize("runtime", [{"compute_dtype": "float8"},

@@ -193,7 +193,28 @@ Phases, one line each with its wall time:
      run; the alternation moving translate, then embed. gem_l2n must
      launch in mining and loss validation and never in a step (it pools
      under autograd). It prints s/step, mining images/s, loss validation
-     s, peak memory, launches and the phase's seconds.
+     s, peak memory, launches and the phase's seconds. Weights are logged
+     as histograms (on the card) in phases 9 and 15, as training logs
+     them, and image samples written as PNG blobs.
+ 16. the branched retrieval net (``cirnet_branched``), in float32, on the
+     same 40 images (scales 1, 2^-1/2, 1/2, phase 7's Lw): a VGG16-GeM
+     whose RGB branch (weight 1) and lab CLAHE lightness branch (weight
+     0.5) run conv1_1 and conv1_2 at full resolution and are summed at
+     layer 2, behind pil2np | add_clahe_fromrgb:4:8:lab | totensor |
+     normalize (a 4-channel mean and std), warmed up with
+     ``warmup_extraction`` (one full chunk per bucket) before its timed
+     run. Gates: gem_l2n once per chunk x scale and each CLAHE kernel once
+     per chunk; the run on every kernel's plain version within 1e-4 with
+     the same top-10 ranks; 8 images on the exact per-image path within
+     1e-4; gem_l2n at the net's maps within 1e-6 of plain; the concat
+     merge at layer 2 and the input-merged net (layer 0) on 8 images at
+     one scale against their per-image paths; the net under ``auto`` (the
+     guard once; a rejection ships float32); one step (5 tuples at 256)
+     card against CPU, and ``auto`` leaving the step float32; one weight
+     log through the event broker (a tensor's counts equal to numpy's), a
+     PNG sample blob read back equal, the device's memory statistics. It
+     prints images/s, peak memory, launches, the weight log's time and the
+     phase's seconds.
 Then one JSON line of kernels (gem_l2n, gem_l2n_bf16 timed at the bf16
 paths' maps, gem_l2n_f16 at the float16 path's, with its times at the bf16
 maps as off-path readings; each redesigned kernel tagged with the PR of
@@ -202,7 +223,9 @@ train step apart; on phase 12's runs, ``dump_path_launches``; on phase
 13's, ``photometric_path_launches``; on phase 14's,
 ``eval_stack_path_launches``, and gem_l2n's times at the densenet and
 squeezenet maps, ``eval_stack_path``; on phase 15's,
-``image_train_path_launches``), the
+``image_train_path_launches``; on phase 16's timed run,
+``branched_path_launches``, and gem_l2n's times at its maps,
+``branched_path``), the
 nvidia-smi line, and the last line
 {"ok": true, "device": {...}}. Any failure raises (non-zero exit, no last
 line). Without a card, or without the port beside it, it fails at once.
@@ -344,6 +367,21 @@ BN_RTOL = BN_ATOL = 1e-5  # BatchNorm statistics, card against CPU
 GRAD_MIN_TENSOR_COSINE = 0.999
 GEM_DTYPES = {torch.float32: "gem_l2n", torch.bfloat16: "gem_l2n_bf16",
               torch.float16: "gem_l2n_f16"}  # instantiation per map dtype
+# phase 16: the branched VGG16-GeM (the paper's RGB plus equalized
+# lightness input): the RGB and CLAHE branches run conv1_1 and conv1_2,
+# summed before the shared rest of the trunk; the transform appends the
+# lab CLAHE lightness as a fourth channel, normalised with it
+BRANCHES = {"0_rgb": {"in": 3, "init": "clone", "weight": 1.0},
+            "1_clahe": {"in": 1, "init": "sum", "weight": 0.5}}
+BRANCHED_MODEL = {"architecture": "cirnet_branched",
+                  "cir_architecture": "vgg16", "pooling": "gem",
+                  "whitening": False, "pretrained": False,
+                  "channels": {"merge": {"layer": 2, "aggregation": "sum"},
+                               "branches": BRANCHES}}
+BRANCHED_TRANSFORM = "pil2np | add_clahe_fromrgb:4:8:lab | totensor | " \
+    "normalize"
+BRANCHED_MEAN_STD = ([0.485, 0.456, 0.406, 0.5], [0.229, 0.224, 0.225, 0.25])
+BRANCHED_EXACT = 8  # images held against the exact per-image path
 
 T0 = time.perf_counter()
 
@@ -450,6 +488,15 @@ def recording_pool(launch, sink, dtypes=None):
         if dtypes is not None:
             dtypes.append(x.dtype)
         return launch(x, valid_hw, p, eps=eps)
+    return fn
+
+
+def recording_chain(chain_fn, sink):
+    """``chain_fn`` (an extractor's device chain) that also copies each
+    chunk's input, the uint8 bucket and its CLAHE aux, into ``sink``."""
+    def fn(batch, aux):
+        sink.append((batch.clone(), {k: v.clone() for k, v in aux.items()}))
+        return chain_fn(batch, aux)
     return fn
 
 
@@ -1115,92 +1162,102 @@ def train_phase(device, clahe, lab_trilinear, pooling_kernel):
     check(launches["gem_l2n"]["train_step"] == 0,
           "the step's GeM runs under autograd (plain)")
 
-    # 1. the step's chain on every tuple bucket against the plain kernels
     dataset = minings[-1]["dataset"]
-    chain_fn = make_bucketed_chain(dataset.device_chain)
-    clip, grid = dataset.device_chain.clahe_params
-    for batch, valid in chain_inputs:
-        aux = aux_to_device(clahe_bucket_aux(
-            [tuple(int(x) for x in v) for v in valid], batch.shape[1:3],
-            clip, grid), device)
-        out = chain_fn(batch, aux)
-        with plain_clahe_kernels(clahe, lab_trilinear):
-            ref = chain_fn(batch, aux)
-        check_equal(out, ref, ("train-step chain", tuple(batch.shape)))
-        check_equal(lab_trilinear.lab_n(batch),
-                    lab_trilinear.lab_n_plain(batch), ("lab_n", "train"))
-        clahe_against_plain(clahe, lab_trilinear.lab_l_u8(batch), aux, grid,
-                            ("train", tuple(batch.shape)))
-    say("train", "train-step chain and its three kernels bit-equal to plain "
-        "on all %d tuple buckets %s"
-        % (len(chain_inputs),
-           sorted({tuple(b.shape) for b, _ in chain_inputs})))
-    gem_err = gem_train_inputs(pooling_kernel, gem_l2n_plain, gem_in, device)
 
-    # 2. mining with the kernels against the plain versions, per epoch:
-    # descriptors within DESC_ATOL and the same negatives in every epoch.
-    # Seeded weights collapse the descriptors (every query-pool score near
-    # 1; the span is printed), so the smallest score gap the picks relied
-    # on is printed beside the descriptor tolerance: under it, the same
-    # negatives are not implied by the tolerance (an open item until
-    # published weights are in the repository)
-    net = initialize_network(None, device, dict(saved[TRAIN_EPOCHS - 1]))
-    desc_err = score_err = 0.0
-    gaps = []
-    for epoch, record in enumerate(minings):
-        net.model.load_state_dict(record["weights"])
-        np.random.set_state(record["rng"])
-        with plain_clahe_kernels(clahe, lab_trilinear), \
-                mock.patch.object(pooling_kernel, "gem_l2n", gem_l2n_plain), \
+    def gates():
+        """Gates 1, 2 and 4 (none timed), on the card beside the CPU's
+        step of gate 3."""
+        # 1. the step's chain on every tuple bucket against the plain kernels
+        chain_fn = make_bucketed_chain(dataset.device_chain)
+        clip, grid = dataset.device_chain.clahe_params
+        for batch, valid in chain_inputs:
+            aux = aux_to_device(clahe_bucket_aux(
+                [tuple(int(x) for x in v) for v in valid], batch.shape[1:3],
+                clip, grid), device)
+            out = chain_fn(batch, aux)
+            with plain_clahe_kernels(clahe, lab_trilinear):
+                ref = chain_fn(batch, aux)
+            check_equal(out, ref, ("train-step chain", tuple(batch.shape)))
+            check_equal(lab_trilinear.lab_n(batch),
+                        lab_trilinear.lab_n_plain(batch), ("lab_n", "train"))
+            clahe_against_plain(clahe, lab_trilinear.lab_l_u8(batch), aux,
+                                grid,
+                                ("train", tuple(batch.shape)))
+        say("train", "train-step chain and its three kernels bit-equal to "
+            "plain on all %d tuple buckets %s"
+            % (len(chain_inputs),
+               sorted({tuple(b.shape) for b, _ in chain_inputs})))
+        gem_err = gem_train_inputs(pooling_kernel, gem_l2n_plain, gem_in,
+                                   device)
+
+        # 2. mining with the kernels against the plain versions, per epoch:
+        # descriptors within DESC_ATOL and the same negatives in every epoch.
+        # Seeded weights collapse the descriptors (every query-pool score near
+        # 1; the span is printed), so the smallest score gap the picks relied
+        # on is printed beside the descriptor tolerance: under it, the same
+        # negatives are not implied by the tolerance (an open item until
+        # published weights are in the repository)
+        net = initialize_network(None, device, dict(saved[TRAIN_EPOCHS - 1]))
+        desc_err = score_err = 0.0
+        gaps = []
+        for epoch, record in enumerate(minings):
+            net.model.load_state_dict(record["weights"])
+            np.random.set_state(record["rng"])
+            with plain_clahe_kernels(clahe, lab_trilinear), \
+                    mock.patch.object(pooling_kernel, "gem_l2n",
+                                      gem_l2n_plain), \
+                    contextlib.redirect_stdout(io.StringIO()):
+                mine(record["dataset"], net)
+            plain, mined = record["dataset"].mined, record["mined"]
+            for key in ("qvecs", "poolvecs"):
+                desc_err = max(desc_err, float(np.abs(
+                    plain[key] - mined[key]).max()))
+            score_err = max(score_err, float(np.abs(
+                plain["scores"] - mined["scores"]).max()))
+            gaps.append(selection_gap(**mined))
+            differing = [q for q, nidxs in enumerate(record["dataset"].nidxs)
+                         if nidxs != record["nidxs"][q]]
+            check(not differing, ("mined negatives, kernels against plain",
+                                  epoch, differing))
+        scores = np.concatenate([r["mined"]["scores"].ravel()
+                                 for r in minings])
+        say("train", "mining, kernels against plain: max |desc diff| %.2e, "
+            "max |score diff| %.2e; the same negatives for all %d queries "
+            "in %d epochs; query-pool scores span [%.4f, %.4f]; smallest "
+            "score gap the picks relied on %s (descriptor tolerance %g%s)"
+            % (desc_err, score_err, TRAIN_QUERY_SIZE, len(minings),
+               scores.min(), scores.max(), ["%.2e" % g for g in gaps],
+               DESC_ATOL, "; under it, the same negatives are not implied by "
+               "the tolerance" if min(gaps) < DESC_ATOL else ""))
+        check(desc_err <= DESC_ATOL, ("mining descriptors vs plain", desc_err))
+
+        # 4. the epoch-2 checkpoint reloads bit for bit; resume to 3 epochs
+        last = load_checkpoint_any(os.path.join(
+            exp, "epochs", "net_epoch_%02d.ckpt" % TRAIN_EPOCHS))
+        live = saved[TRAIN_EPOCHS - 1]["net"]["model_state"]
+        reloaded = initialize_network(None, device, {"net": last}).state_dict()
+        for name, value in live.items():
+            check(torch.equal(last["model_state"][name], value)
+                  and torch.equal(reloaded["net"]["model_state"][name], value),
+                  ("checkpoint reload", name))
+        minings.clear()
+        with mock.patch.object(TuplesDataset, "create_epoch_tuples",
+                               timed_mine), \
                 contextlib.redirect_stdout(io.StringIO()):
-            mine(record["dataset"], net)
-        plain, mined = record["dataset"].mined, record["mined"]
-        for key in ("qvecs", "poolvecs"):
-            desc_err = max(desc_err, float(np.abs(
-                plain[key] - mined[key]).max()))
-        score_err = max(score_err, float(np.abs(
-            plain["scores"] - mined["scores"]).max()))
-        gaps.append(selection_gap(**mined))
-        differing = [q for q, nidxs in enumerate(record["dataset"].nidxs)
-                     if nidxs != record["nidxs"][q]]
-        check(not differing, ("mined negatives, kernels against plain",
-                              epoch, differing))
-    scores = np.concatenate([r["mined"]["scores"].ravel() for r in minings])
-    say("train", "mining, kernels against plain: max |desc diff| %.2e, max "
-        "|score diff| %.2e; the same negatives for all %d queries in %d "
-        "epochs; query-pool scores span [%.4f, %.4f]; smallest score gap "
-        "the picks relied on %s (descriptor tolerance %g%s)"
-        % (desc_err, score_err, TRAIN_QUERY_SIZE, len(minings),
-           scores.min(), scores.max(), ["%.2e" % g for g in gaps],
-           DESC_ATOL, "; under it, the same negatives are not implied by "
-           "the tolerance" if min(gaps) < DESC_ATOL else ""))
-    check(desc_err <= DESC_ATOL, ("mining descriptors vs plain", desc_err))
-
-    # 4. the epoch-2 checkpoint reloads bit for bit; resume to 3 epochs
-    last = load_checkpoint_any(os.path.join(
-        exp, "epochs", "net_epoch_%02d.ckpt" % TRAIN_EPOCHS))
-    live = saved[TRAIN_EPOCHS - 1]["net"]["model_state"]
-    reloaded = initialize_network(None, device, {"net": last}).state_dict()
-    for name, value in live.items():
-        check(torch.equal(last["model_state"][name], value)
-              and torch.equal(reloaded["net"]["model_state"][name], value),
-              ("checkpoint reload", name))
-    minings.clear()
-    with mock.patch.object(TuplesDataset, "create_epoch_tuples",
-                           timed_mine), \
-            contextlib.redirect_stdout(io.StringIO()):
-        resumed, = train(train_scenario(exp, db_pkl, TRAIN_EPOCHS + 1), (),
-                         device=device)
-    resumed = resumed["metrics"]["train/learning/loss:total_avg.4"]
-    check(len(minings) == 1 and resumed[:TRAIN_EPOCHS] == losses
-          and np.isfinite(resumed[-1]) and resumed[-1] > 0,
-          ("resumed epoch", len(minings), resumed, losses))
-    say("train", "epoch-%d checkpoint reloads bit-equal (%d tensors); "
-        "resumed, epoch %d's loss %.6f" % (TRAIN_EPOCHS, len(live),
-                                           TRAIN_EPOCHS, resumed[-1]))
+            resumed, = train(train_scenario(exp, db_pkl, TRAIN_EPOCHS + 1), (),
+                             device=device)
+        resumed = resumed["metrics"]["train/learning/loss:total_avg.4"]
+        check(len(minings) == 1 and resumed[:TRAIN_EPOCHS] == losses
+              and np.isfinite(resumed[-1]) and resumed[-1] > 0,
+              ("resumed epoch", len(minings), resumed, losses))
+        say("train", "epoch-%d checkpoint reloads bit-equal (%d tensors); "
+            "resumed, epoch %d's loss %.6f" % (TRAIN_EPOCHS, len(live),
+                                               TRAIN_EPOCHS, resumed[-1]))
+        return gem_err
 
     # 3. one step on the card against the CPU at a reduced size
-    card_cpu_step(device, dataset, saved[TRAIN_EPOCHS - 1])
+    gem_err = card_cpu_step(device, dataset, saved[TRAIN_EPOCHS - 1],
+                            meanwhile=gates)
     # 6. two steps under auto (bf16 trunk, the guard) beside float32
     bf16 = bf16_train_steps(device, dataset, saved[TRAIN_EPOCHS - 1])
     shutil.rmtree(root, ignore_errors=True)
@@ -1405,44 +1462,78 @@ def gem_train_inputs(pooling_kernel, gem_l2n_plain, inputs, device):
     return err
 
 
-def card_cpu_step(device, dataset, state):
+def cut_to_side(img, side=TRAIN_CHECK_SIDE):
+    """An image's top-left crop scaled to a longer side of ``side``."""
+    scale = side / max(img.shape[:2])
+    return img[:max(1, int(img.shape[0] * scale)),
+               :max(1, int(img.shape[1] * scale))]
+
+
+def card_cpu_step(device, dataset, state, meanwhile):
     """One batch's step from the same weights on the card and on the CPU,
-    every image cut to a longer side of TRAIN_CHECK_SIDE."""
+    every image cut to a longer side of TRAIN_CHECK_SIDE, ``meanwhile()``
+    on the card beside the CPU's; returns what it returned."""
     from mdir_tpu_torch.learning.network import initialize_network
+
+    items = [dataset[i] for i in range(TRAIN_BATCH)]
+    _, also = card_cpu_tuple_step(
+        "train", device, lambda where: initialize_network(None, where, state),
+        [[cut_to_side(img) for img in tpl] for tpl, _ in items],
+        [target for _, target in items], dataset.device_chain, meanwhile)
+    return also
+
+
+def tuple_step(where, make_network, images, targets, chain):
+    """One contrastive step of ``make_network(where)`` on the tuples:
+    (loss, {name: gradient on the CPU in float64}, seconds)."""
     from mdir_tpu_torch.learning.train_step import TrainStep
     from mdir_tpu_torch.optim.criteria import initialize_criterion
 
-    def cut(img):
-        scale = TRAIN_CHECK_SIDE / max(img.shape[:2])
-        return img[:max(1, int(img.shape[0] * scale)),
-                   :max(1, int(img.shape[1] * scale))]
+    net = make_network(where).train()
+    step = TrainStep(net, initialize_criterion(
+        {"loss": "contrastive", "margin": 0.7, "eps": 1e-6}),
+        device_chain=chain)
+    t = time.perf_counter()
+    loss, _ = step.gradients(images, targets)
+    loss = float(loss)
+    return loss, {name: p.grad.detach().cpu().double()
+                  for name, p in net.model.named_parameters()}, \
+        time.perf_counter() - t
 
-    items = [dataset[i] for i in range(TRAIN_BATCH)]
-    images = [[cut(img) for img in tpl] for tpl, _ in items]
-    targets = [target for _, target in items]
-    results = []
-    for where in (device, torch.device("cpu")):
-        net = initialize_network(None, where, state).train()
-        step = TrainStep(net, initialize_criterion(
-            {"loss": "contrastive", "margin": 0.7, "eps": 1e-6}),
-            device_chain=dataset.device_chain)
-        loss, _ = step.gradients(images, targets)
-        results.append((float(loss), {name: p.grad.detach().cpu().double()
-                                      for name, p
-                                      in net.model.named_parameters()}))
-    (card_loss, card), (cpu_loss, cpu) = results
+
+def card_cpu_tuple_step(phase, device, make_network, images, targets,
+                        chain, meanwhile):
+    """One contrastive step of ``make_network(where)`` on the tuples, on
+    the card and on the CPU: the loss within LOSS_RTOL, every gradient
+    tensor at cosine >= GRAD_MIN_COSINE. The CPU's step runs on a second
+    thread while the card runs its own and then ``meanwhile()`` (card work
+    with gates of its own, none of it timed), so that its seconds hide
+    behind the card's. Returns ((loss gap, least cosine, the card's step
+    seconds), what ``meanwhile`` returned)."""
+    import concurrent.futures
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        on_cpu = pool.submit(tuple_step, torch.device("cpu"), make_network,
+                             images, targets, chain)
+        card_loss, card, card_s = tuple_step(device, make_network, images,
+                                             targets, chain)
+        also = meanwhile()
+        cpu_loss, cpu, cpu_s = on_cpu.result()
     rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
     cosines = {name: float((card[name] * cpu[name]).sum()
                            / (card[name].norm() * cpu[name].norm()))
                for name in cpu}
     worst = min(cosines, key=cosines.get)
-    say("train", "one step at longer side %d (%d tuples), card against CPU: "
-        "loss %.6f vs %.6f (rel %.2e), least gradient cosine %.7f (%s)"
+    say(phase, "one step at longer side %d (%d tuples), card against CPU: "
+        "loss %.6f vs %.6f (rel %.2e), least gradient cosine %.7f (%s); "
+        "%.2f s on the card, %.2f s on the CPU"
         % (TRAIN_CHECK_SIDE, len(images), card_loss, cpu_loss, rel,
-           cosines[worst], worst))
-    check(rel <= LOSS_RTOL, ("card step loss vs CPU", card_loss, cpu_loss))
+           cosines[worst], worst, card_s, cpu_s))
+    check(rel <= LOSS_RTOL, (phase, "card step loss vs CPU", card_loss,
+                             cpu_loss))
     check(cosines[worst] >= GRAD_MIN_COSINE,
-          ("card step gradient vs CPU", worst, cosines[worst]))
+          (phase, "card step gradient vs CPU", worst, cosines[worst]))
+    return (rel, cosines[worst], card_s), also
 
 
 def with_compute_dtype(network, mode):
@@ -3119,6 +3210,265 @@ def image_train_phase(device, clahe, lab_trilinear, pooling_kernel,
             "pool": pool}
 
 
+def read_png(path):
+    """The pixels of a PNG written by the event broker's encoder (8-bit,
+    unfiltered rows), read with the standard library: the card's machine
+    has no PIL."""
+    import struct
+    import zlib
+
+    data = open(path, "rb").read()
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", ("PNG signature", path))
+    pos, idat, header = 8, b"", None
+    while pos < len(data):
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + length
+    w, h, depth, colour = header[:4]
+    channels = {0: 1, 4: 2, 2: 3, 6: 4}[colour]
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+        h, 1 + w * channels)
+    check(depth == 8 and not rows[:, 0].any(), ("unfiltered 8-bit", path))
+    return rows[:, 1:].reshape(h, w, channels).squeeze(-1) \
+        if channels == 1 else rows[:, 1:].reshape(h, w, channels)
+
+
+def branched_phase(device, db, queries, gnd, whiten_path, clahe,
+                   lab_trilinear, pooling_kernel, gem_l2n_plain, gen, smi):
+    """Phase 16: the branched VGG16-GeM (``cirnet_branched``: an RGB
+    branch and a lab CLAHE lightness branch through conv1_1 and conv1_2,
+    summed at layer 2) in float32 on the 40 images (scales 1, 2^-1/2, 1/2,
+    Lw), after ``warmup_extraction``; the same run on the plain kernels;
+    the per-image path; the kernel at the net's maps; the concat merge and
+    the input-merged net on 8 images; the net under ``auto``; one train
+    step, card against CPU; the event tools on the card. Returns the
+    kernels' launches on the timed run and the pool's checks."""
+    import shutil
+    import tempfile
+
+    from mdir_tpu_torch import _build
+    from mdir_tpu_torch.data.transforms import initialize_transforms
+    from mdir_tpu_torch.learning.network import CirNetwork
+    from mdir_tpu_torch.learning.train_step import TrainStep
+    from mdir_tpu_torch.models import initialize_model
+    from mdir_tpu_torch.ops import dtypes as dtype_policy
+    from mdir_tpu_torch.ops.preprocess import chain_from_transform
+    from mdir_tpu_torch.ops.ranking import compute_map, rank_database
+    from mdir_tpu_torch.optim.criteria import initialize_criterion
+    from mdir_tpu_torch.parallel import extract
+    from mdir_tpu_torch.tools import events, sysstats, warmup
+
+    t_phase = time.perf_counter()
+    n_images = len(db) + len(queries)
+    transform = initialize_transforms(BRANCHED_TRANSFORM, BRANCHED_MEAN_STD)
+    chain = chain_from_transform(transform)
+    check(chain is not None, "the branched transform lowers to the chain")
+
+    def make_net(params, where=device, scales=SCALES, mode="float32",
+                 wrappers=True):
+        model = initialize_model(params, device=where, seed=SEED)
+        eval_wrappers = {
+            "0_cirwhiten": {"whitening": whiten_path, "dimensions": None},
+            "1_cirmultiscale": {"scales": scales}} if wrappers else ""
+        return CirNetwork(model, CirNetwork.NetworkParams(
+            model=params, runtime={
+                "wrappers": {"train": None, "eval": eval_wrappers},
+                "data": {"mean_std": [list(v) for v in BRANCHED_MEAN_STD]},
+                "compute_dtype": mode}), frozen=True)
+
+    def batched(network, image_sets, chain_in=None):
+        """Descriptors, chunks and guard reports of the path; each chunk's
+        chain input (the uint8 bucket and its CLAHE aux) is copied into
+        ``chain_in`` when it is given."""
+        out, chunks, reports = [], 0, []
+        for images in image_sets:
+            extractor = extract.network_extractor(network, transform)
+            check(extractor.chain_fn is not None, "the device chain's route")
+            if chain_in is not None:
+                extractor.chain_fn = recording_chain(extractor.chain_fn,
+                                                     chain_in)
+            for i, img in enumerate(images):
+                extractor.add(i, img)
+            out.append(extractor.finish(len(images)))
+            chunks += extractor.chunks
+            reports.append(extractor.guard_report)
+        return out, chunks, reports
+
+    def ranks_of(out):
+        vecs, qvecs = (torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                       for v in out)
+        return rank_database(vecs, qvecs).cpu().numpy()
+
+    net = make_net(BRANCHED_MODEL)
+    check(net.model.meta["in_channels"] == 4, "4 input channels")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    warmed = warmup.warmup_extraction(
+        net.model, warmup.bucket_shapes(
+            [img.shape[:2] for img in db + queries],
+            extract.BUCKET_MULTIPLE), scales=SCALES, msp=net.model.pool_p,
+        device_chain=chain)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+
+    gem_in, chain_in = [], []
+    for module in (pooling_kernel, lab_trilinear, clahe):
+        module.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with mock.patch.object(pooling_kernel, "gem_l2n", recording_pool(
+            pooling_kernel.gem_l2n, gem_in)):
+        out, chunks, _ = batched(net, (db, queries), chain_in)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launches = kernel_counts(clahe, lab_trilinear, pooling_kernel)
+    peak = torch.cuda.max_memory_allocated()
+    for v in out:
+        check(v.shape[0] == CLAHE_DIM and np.isfinite(v).all(),
+              "branched: finite descriptors")
+        check(np.abs(np.linalg.norm(v, axis=0) - 1).max() < 1e-4,
+              "branched: unit norms")
+    check(launches["gem_l2n"] == chunks * len(SCALES),
+          ("branched: gem_l2n launches", launches, chunks))
+    for name in ("lab_n", "clahe_tile_luts", "clahe_interp"):
+        check(launches[name] == chunks,
+              ("branched: %s launches" % name, launches, chunks))
+    ranks = ranks_of(out)
+    mean_ap = compute_map(ranks, gnd)[0]
+    say("branch", "VGG16-GeM branched (rgb + lab CLAHE lightness, sum at "
+        "layer 2), scales %s, Lw: warm-up %d buckets %.2f s; %d images in "
+        "%d chunks, %.2f s, %.1f images/s, peak %.2f GB; launches %s; mAP "
+        "%.4f | %s"
+        % ([round(x, 4) for x in SCALES], len(warmed), warm_s, n_images,
+           chunks, seconds, n_images / seconds, peak / 1e9, launches,
+           mean_ap, smi))
+
+    pool = gem_path_phase("branched VGG16", pooling_kernel, gem_l2n_plain,
+                          gem_in, gen, device)
+    check(pool["max_abs_err"] <= 1e-6, ("branched pool", pool))
+
+    # the event tools on the card: a weight log, a sample blob, the stats
+    root = tempfile.mkdtemp(dir=_build.BUILD_ROOT)
+    broker = events.initialize_processor({}, dataroot=root)
+    row, = net.train_data()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    broker.register_data(0, 0, 1, "train/" + row["key"], row["data"],
+                         row["dtype"])
+    log_s = time.perf_counter() - t
+    name = max(row["data"], key=lambda k: row["data"][k].numel())
+    _, counts = broker.epoch_log.rows[-1]["data"][name]
+    want, _ = np.histogram(row["data"][name].cpu().numpy(), bins=200)
+    check(np.array_equal(counts, want), ("weight histogram", name))
+    sample = db[0][:96, :64]
+    broker.register_data(0, 0, 1, "train/data/input", {
+        "image0.rgb": {"dtype": "image:rgb", "data": sample}}, "blob")
+    path = broker.epoch_log.rows[-1]["data"]["image0.rgb"]["path"]
+    check(np.array_equal(read_png(path), sample), "sample blob round trip")
+    broker.close_epoch()
+    shutil.rmtree(root)
+
+    def gates():
+        """The untimed gates, run on the card beside the CPU's step."""
+        # the chain's kernels against plain at every chunk of the timed run
+        grid = chain.clahe_params[1]
+        check(len(chain_in) == chunks, ("branched: chunks recorded",
+                                        len(chain_in), chunks))
+        for batch, aux in chain_in:
+            check_equal(lab_trilinear.lab_n(batch),
+                        lab_trilinear.lab_n_plain(batch),
+                        ("branched: lab_n", tuple(batch.shape)))
+            clahe_against_plain(clahe, lab_trilinear.lab_l_u8(batch), aux,
+                                grid, ("branched", tuple(batch.shape)))
+        say("branch", "lab_n, clahe_tile_luts, clahe_interp bit-equal to "
+            "plain at all %d chunks of the timed pass" % len(chain_in))
+        # every kernel on its plain version: descriptors and ranks
+        with plain_clahe_kernels(clahe, lab_trilinear), \
+                mock.patch.object(pooling_kernel, "gem_l2n", gem_l2n_plain):
+            plain, _, _ = batched(net, (db, queries))
+        desc_err = max(float(np.abs(a - b).max())
+                       for a, b in zip(out, plain))
+        check(desc_err <= DESC_ATOL, ("branched vs plain kernels",
+                                      desc_err))
+        check((ranks[:10] == ranks_of(plain)[:10]).all(),
+              "branched: top-10 ranks vs plain kernels")
+        # the exact per-image path on 8 images at native sizes
+        exact = extract.extract_vectors_per_image(net, eight, None,
+                                                  transform)
+        exact_err = float(np.abs(out[0][:, picked] - exact).max())
+        check(exact_err <= DESC_ATOL, ("branched vs per-image", exact_err))
+        say("branch", "against the plain kernels: max |desc diff| %.2e, "
+            "top-10 ranks equal; the per-image path on %d images: %.2e"
+            % (desc_err, len(picked), exact_err))
+        # the concat merge at layer 2 and the input-merged net, one scale
+        variants = {}
+        for tag, merge in (("concat at layer 2",
+                            {"layer": 2, "aggregation": "concat"}),
+                           ("input-merged",
+                            {"layer": 0, "aggregation": "concat"})):
+            variant = make_net(dict(BRANCHED_MODEL, channels={
+                "merge": merge, "branches": BRANCHES}), scales=[1])
+            got, _, _ = batched(variant, (eight,))
+            want = extract.extract_vectors_per_image(variant, eight, None,
+                                                     transform)
+            variants[tag] = float(np.abs(got[0] - want).max())
+            check(variants[tag] <= DESC_ATOL, (tag, "vs per-image",
+                                               variants[tag]))
+        say("branch", "%d images at one scale, batched against "
+            "per-image: %s" % (len(eight), ", ".join(
+                "%s %.2e" % kv for kv in variants.items())))
+        # the net under auto: the guard's verdict
+        auto_out, _, reports = batched(with_compute_dtype(net, "auto"),
+                                       (db, queries))
+        guard = reports[0]
+        check(guard is not None and reports[1] is None,
+              ("branched auto: the guard on the first chunk", reports))
+        auto_err = max(float(np.abs(a - b).max())
+                       for a, b in zip(auto_out, out))
+        if not guard["ok"]:
+            check(auto_err <= DESC_ATOL, ("guard rejected: float32",
+                                          auto_err))
+        say("branch", "auto: the guard %s (least row cosine %.6f, bar %g); "
+            "max |desc - float32| %.2e"
+            % ("accepted bfloat16" if guard["ok"] else "rejected it",
+               guard["min_cosine"], dtype_policy.GUARD_MIN_COSINE,
+               auto_err))
+        return {"plain_err": desc_err, "per_image_err": exact_err,
+                "variants": variants, "guard": guard,
+                "auto_err": auto_err}
+
+    # one step, card against CPU (the CPU's beside the gates), and auto
+    # leaves the step in float32
+    picked = list(range(0, len(db), len(db) // BRANCHED_EXACT))
+    eight = [db[i] for i in picked]
+    tuples = [[cut_to_side(db[(b * (2 + TRAIN_NEG_NUM) + k) % len(db)])
+               for k in range(2 + TRAIN_NEG_NUM)]
+              for b in range(TRAIN_BATCH)]
+    targets = [np.array([-1, 1] + [0] * TRAIN_NEG_NUM, np.float32)
+               ] * TRAIN_BATCH
+    step, readings = card_cpu_tuple_step(
+        "branch", device, lambda where: make_net(
+            BRANCHED_MODEL, where=where, wrappers=False),
+        tuples, targets, chain, meanwhile=gates)
+    auto_step = TrainStep(make_net(BRANCHED_MODEL, mode="auto"),
+                          initialize_criterion({"loss": "contrastive",
+                                                "margin": 0.7}))
+    check(auto_step.compute_dtype is None, "auto leaves the step float32")
+    memory = sysstats.DeviceStats.memory_usage()
+    say("branch", "events: %d weight tensors' histograms in %.3f s (%s's "
+        "counts equal numpy's); a sample blob decoded equal; device memory "
+        "%s" % (len(row["data"]), log_s, name, memory))
+    say("branch", "phase 16: %.1f s | %s" % (time.perf_counter() - t_phase,
+                                            smi))
+    return {"launches": launches, "pool": pool, "readings": dict(
+        readings, images_per_s=n_images / seconds, peak_gb=peak / 1e9,
+        chunks=chunks, step=step, weight_log_s=log_s)}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; it runs on a card only")
@@ -3356,6 +3706,10 @@ def main():
     # embedder
     image_train = image_train_phase(device, clahe, lab_trilinear,
                                     pooling_kernel, gem_l2n_plain, gen, smi)
+    # 16. the branched retrieval net, the event tools on the card
+    branched = branched_phase(device, db, queries, gnd, path["whiten_path"],
+                              clahe, lab_trilinear, pooling_kernel,
+                              gem_l2n_plain, gen, smi)
     sources = {"lab_n": ("mdir_tpu_torch/csrc/lab_n.cu",
                          "mdir_tpu/ops/lab_trilinear.py:493",
                          ["mdir_tpu/ops/lab_trilinear.py:359"],
@@ -3377,7 +3731,8 @@ def main():
         "max_abs_err": max([max_err, resnet_pool["max_abs_err"],
                             vgg_pool["max_abs_err"], trained["gem_err"],
                             unet_pool["max_abs_err"],
-                            image_train["pool"]["max_abs_err"]]
+                            image_train["pool"]["max_abs_err"],
+                            branched["pool"]["max_abs_err"]]
                            + [pool["max_abs_err"]
                               for pool in stack["pools"].values()]),
         **resnet_pool["timed"], "library_ms": None,
@@ -3393,7 +3748,9 @@ def main():
                             for tag, pool in stack["pools"].items()},
         "image_train_path": dict(image_train["pool"]["timed"],
                                  small_batch=image_train["pool"][
-                                     "small_batch"])}]
+                                     "small_batch"]),
+        "branched_path": dict(branched["pool"]["timed"],
+                              small_batch=branched["pool"]["small_batch"])}]
     for name, (source, replaces, also, wrappers) in sources.items():
         kernels.append(dict(
             {"name": name, "route": "cuda", "source": source,
@@ -3457,6 +3814,8 @@ def main():
         entry["eval_stack_path_launches"] = {
             run: counted.get(entry["name"], 0)
             for run, counted in stack["launches"].items()}
+        entry["branched_path_launches"] = branched["launches"].get(
+            entry["name"], 0)
         entry["image_train_path_launches"] = {
             "translator": image_train["translator"][entry["name"]],
             "joint": image_train["joint"][entry["name"]],

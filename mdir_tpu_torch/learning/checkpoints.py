@@ -6,7 +6,9 @@ Reading: the JAX package's msgpack ``.ckpt`` files and torch pickles. A
 arrays are msgpack ext values (code 1: an array as ``(shape, dtype name,
 bytes)``; code 3: a numpy scalar, encoded the same way). ``msgpack`` and
 ``torch.load`` are imported inside the readers, off the path that only
-extracts. Nothing is downloaded: URLs raise.
+extracts. Nothing is downloaded: a URL is read from its local file
+(``tools/utils.py::resolve_artifact``, ``<data root>/networks/<basename>``,
+hash-checked), and a missing one raises, naming where to put it.
 
 Writing: the port writes ``torch.save`` files under the JAX package's names
 (``net_epoch_%02d.ckpt``, ``learning_epoch_%02d.ckpt``, the
@@ -31,6 +33,8 @@ import pickle
 from pathlib import Path
 
 import numpy as np
+
+from ..tools.utils import local_path
 
 SUFFIX_NOTRAIN = "_notrain.ckpt"
 SUFFIX_FROZEN = "_frozen.ckpt"
@@ -256,11 +260,9 @@ class Checkpoints:
     def load_network(cls, directory):
         """A network state ``{"net": payload, <member>: payload, ...}`` from
         a directory (its best checkpoint, with its siblings) or a file (with
-        its embedded members)."""
-        if str(directory).startswith(("http://", "https://")):
-            raise ValueError("the port does not download checkpoints; fetch "
-                             "%s and pass its local path" % directory)
-        path = Path(directory)
+        its embedded members); a URL names a file, read from
+        ``<data root>/networks`` as the JAX package caches it."""
+        path = Path(local_path(directory))
         if path.is_dir():
             suffix = SUFFIX_BEST
             if not (path / ("net" + suffix)).exists() \

@@ -12,9 +12,14 @@ live BatchNorm statistics stay in the modules. Dropout draws from one
 ``torch.Generator`` per ``SupervisedEpoch``, seeded with 0 when it is built
 and not restored on resume, as the JAX package's ``PRNGKey(0)`` is.
 
-The weight histograms and image samples the JAX package logs feed its
-tensorboard and html report (ROADMAP §1.7), which the port does not have:
-it logs neither.
+On the JAX package's schedule (JAX ``:228-335``) it logs the network's
+weights (``train_data``: histograms counted on the card by the event
+broker) before the first epoch's first step and at every epoch's last step,
+and image samples of the batch the step ran on the first step of the first
+epoch and the last step of every fifth: the last tuple's images (raw uint8
+from a device chain, shown as they are, else de-normalised with the
+dataset's mean and std), and for an image-to-image batch the last image,
+the net's output of it and its target.
 
 A photometric transform that lowers to a device chain (CLAHE in lab, lsh
 or luv, ``tospace``) always runs on the card: the dataset's items are raw
@@ -26,6 +31,7 @@ not lower runs on the host in ``__getitem__``, its device transforms
 """
 import copy
 
+import numpy as np
 import torch
 
 from ..data.datasets import TuplesDataset, initialize_dataset_loader
@@ -39,11 +45,14 @@ from .train_step import TrainStep
 
 class SupervisedEpoch:
 
+    LOG_TRAINDATA_SAMPLE_EVERY = 5
+
     def __init__(self, data_loader, criterion, *, batch_average, fakebatch,
-                 parallel=None):
+                 parallel=None, mean_std=None):
         del fakebatch  # the step picks per-tuple or whole-batch itself
         self.data_loader = data_loader
         self.criterion = criterion
+        self.mean_std = mean_std
         self.epoch = None
         if not isinstance(batch_average, bool):
             raise TypeError("batch_average must be a bool, got %r"
@@ -57,6 +66,7 @@ class SupervisedEpoch:
         self.criterion_mean_reduction = criterion.reduction == "mean"
         self._train_step = None
         self._generator = None  # the Dropout generator, made on the device
+        self._sample = None  # (last image, its output, its target)
 
     @classmethod
     def initialize(cls, params_epoch, data, params_data, default_criterion,
@@ -81,7 +91,7 @@ class SupervisedEpoch:
         else:
             criterion = initialize_criterion(criterion_section)
         return cls(data_loader=data_loader, criterion=criterion,
-                   **params_epoch)
+                   mean_std=data_params.get("mean_std"), **params_epoch)
 
     def steps(self, epoch):
         self.epoch = epoch
@@ -113,6 +123,8 @@ class SupervisedEpoch:
                     else:
                         param.grad.mul_(batch_size)
         optimizer.step()
+        self._sample = (batch_images[-1], self._train_step.last_output,
+                        batch_targets[-1])
 
         value = float(loss)
         if divide:
@@ -122,6 +134,55 @@ class SupervisedEpoch:
         if not self.batch_average:
             value /= batch_size
         return {"total": value}
+
+    @staticmethod
+    def _log_parameter_weights(network, logger):
+        for row in network.train_data():
+            logger(row["key"], row["data"], row["dtype"])
+
+    def _log_traindata_sample(self, image, logger, label):
+        """One blob row of an image (or a tuple's images): RGB and each
+        further channel as gray, the first three images' channels only."""
+        if not isinstance(image, list):
+            image = [image]
+        dbg = {}
+        for j, img in enumerate(image):
+            img = img.detach().cpu().numpy() if torch.is_tensor(img) \
+                else np.asarray(img)
+            if img.ndim == 4:
+                img = img[0]
+            nchans = img.shape[-1]
+            if img.dtype == np.uint8:  # raw device-chain input
+                img = img.astype(np.float32) / 255.0
+                mean = np.zeros(nchans, np.float32)
+                std = np.ones(nchans, np.float32)
+            else:
+                mean = np.asarray(self.mean_std[0], np.float32)
+                std = np.asarray(self.mean_std[1], np.float32)
+            if nchans >= 3:
+                dbg["image%s.rgb" % j] = {
+                    "dtype": "image:rgb",
+                    "data": img[..., :3] * std[:3] + mean[:3]}
+                if j >= 3:
+                    continue
+            for k in range(3 if nchans >= 3 else 0, nchans):
+                dbg["image%s.chan%s" % (j, k + 1)] = {
+                    "dtype": "image:gray",
+                    "data": img[..., k] * std[k] + mean[k]}
+                if j >= 3:
+                    break
+        logger("data/%s" % label, dbg, "blob")
+
+    def _log_samples(self, logger):
+        """The step's input; an image-to-image batch's output and target
+        too (a descriptor output is skipped, as in the reference)."""
+        image, output, target = self._sample
+        self._log_traindata_sample(image, logger, "input")
+        if not isinstance(image, list) and output is not None \
+                and output.dim() == np.ndim(image) + 1:
+            self._log_traindata_sample(output[-1].permute(1, 2, 0), logger,
+                                       "output")
+            self._log_traindata_sample(target, logger, "target")
 
     def _mine_epoch_tuples(self, network, logger, watch):
         """Eval-mode hard-negative mining, its statistics and time."""
@@ -144,6 +205,10 @@ class SupervisedEpoch:
         on_device(getattr(loader.dataset, "transform", None), network.device)
         stopwatch = StopWatch()
         self._mine_epoch_tuples(network, logger, stopwatch)
+        size = len(loader)
+        if self.epoch == 0:
+            self._log_parameter_weights(
+                network, lambda *row: logger(-1, size, *row))
         network.train()
 
         for i, (batch_images, batch_targets) in enumerate(loader):
@@ -151,7 +216,14 @@ class SupervisedEpoch:
             losses = self._optimization_step(network, optimizer,
                                              batch_images, batch_targets)
             stopwatch.lap("process_batch")
-            logger(i, len(loader), "learning/loss", losses, "scalar/loss")
+            logger(i, size, "learning/loss", losses, "scalar/loss")
+            row_logger = lambda *row, i=i: logger(i, size, *row)
+            if i == size - 1:
+                self._log_parameter_weights(network, row_logger)
+            if (i == size - 1 and (self.epoch + 1)
+                    % self.LOG_TRAINDATA_SAMPLE_EVERY == 0) \
+                    or (i == 0 and self.epoch == 0):
+                self._log_samples(row_logger)
             yield losses
             stopwatch.lap("take_statistics")
             logger(i, len(loader), "learning/iteration",

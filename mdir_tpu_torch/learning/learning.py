@@ -4,7 +4,8 @@ validations, the event broker and the resource statistics, opened fresh or
 restored from the latest checkpoint under ``<directory>/epochs``, iterated
 as ``Epoch(epoch, train, vals)`` and checkpointed at each epoch's close. The
 checkpoint payload is ``{training, validation, datasets, events,
-resources}`` beside the network files.
+resources}`` beside the network files. The event broker writes its blobs
+and report under the checkpoints' ``epochs`` directory.
 """
 import copy
 from collections import namedtuple
@@ -36,12 +37,14 @@ def _check_scenario_shape(params):
 def _open_session(params, data, device):
     """Restore from the latest checkpoint if there is one, else start."""
     checkpoints = Checkpoints(**params["learning"]["checkpoints"])
+    events_root = checkpoints.directory  # JAX's "<directory>/../epochs"
     saved = checkpoints.load_latest_epoch(
         params["learning"]["training"]["epochs"])
 
     if saved is None:
         network = initialize_network(params["network"], device)
-        events = initialize_processor(params["output"]["learning"])
+        events = initialize_processor(params["output"]["learning"],
+                                      events_root)
         resources = ResourceUsage.initialize()
         training = initialize_training(params["learning"]["training"],
                                        network, data, params["data"])
@@ -50,7 +53,7 @@ def _open_session(params, data, device):
         check_session_consistency(train_stats, params)
         network = initialize_network(params["network"], device, net_state)
         events = initialize_processor(params["output"]["learning"],
-                                      train_stats["events"])
+                                      events_root, train_stats["events"])
         resources = ResourceUsage.initialize_from_state(
             train_stats["resources"])
         training = initialize_training(params["learning"]["training"],

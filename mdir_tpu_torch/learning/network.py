@@ -14,6 +14,8 @@ defaults and puts GeM's ``p`` in a ``pool`` parameter group with 10x the
 learning rate and no weight decay. Descriptor models keep the reference's
 D x N output convention at ``__call__``. A retrieval trunk's BatchNorm stays
 frozen in training; a U-Net's is live in train mode (``models/layers.py``).
+``train_data`` gives the weight-histogram rows of the training's event log
+and ``const_data`` the network's graph, as the JAX package's.
 
 ``SequentialNetwork`` composes two networks (a U-Net translator, then an
 embedder) and presents them as one: the tail's wrappers move up to the
@@ -101,6 +103,36 @@ def _restore_weights(model, model_state):
     return torch_import.import_model_state(model, model_state)
 
 
+def generate_network_graph(models):
+    """The models' module summaries (``str(module)``) drawn as one image
+    blob with PIL, or None where PIL is not importable (the card's machine)
+    or cannot draw it: a debug image, as the JAX package's ``nn.tabulate``
+    render, which returns None on any failure."""
+    try:
+        from PIL import Image, ImageDraw
+    except ImportError:
+        return None
+    try:
+        lines = "\n".join(str(model) for model in models).split("\n")[:200]
+        width = min(max(len(line) for line in lines) * 7 + 20, 1600)
+        img = Image.new("RGB", (width, len(lines) * 12 + 20), "white")
+        draw = ImageDraw.Draw(img)
+        for i, line in enumerate(lines):
+            draw.text((10, 10 + i * 12), line, fill="black")
+        return np.asarray(img)
+    except (OSError, ValueError):  # no default font, an image too large
+        return None
+
+
+def graph_rows(models):
+    """The constant rows of the event log: the graph's blob, if drawn."""
+    graph = generate_network_graph(models)
+    if graph is None:
+        return []
+    return [{"key": "network_graph", "dtype": "blob",
+             "data": {"net": {"dtype": "image:rgb", "data": graph}}}]
+
+
 class SingleNetwork:
     """One model + its runtime (wrappers, data defaults, frozen flag)."""
 
@@ -159,6 +191,18 @@ class SingleNetwork:
         params = OrderedDict(self.model.named_parameters())
         return {"params": params, "labels": dict.fromkeys(params, "default"),
                 "opts": {}}
+
+    # --- debug / observability ---------------------------------------------
+
+    def train_data(self):
+        """The weight-histogram rows (JAX ``network.py:145-147``): every
+        parameter under its name, on its device (the broker counts there)."""
+        return [{"key": "net/params", "dtype": "weight/param",
+                 "data": {name: p.detach() for name, p
+                          in self.model.named_parameters()}}]
+
+    def const_data(self):
+        return graph_rows([self.model])
 
     # --- inference ---------------------------------------------------------
 
@@ -445,6 +489,17 @@ class SequentialNetwork:
                     for name in self.sequence)
         return {name: groups for name, groups in reported
                 if groups is not None}
+
+    def train_data(self):
+        """Each member's weight rows, keyed by the member's name (JAX
+        ``network.py:539-545``)."""
+        return [{**row, "key": row["key"].replace("net/", name + "/")}
+                for name in self.sequence
+                for row in self.networks[name].train_data()]
+
+    def const_data(self):
+        return graph_rows([self.networks[name].model
+                           for name in self.sequence])
 
     @classmethod
     def initialize(cls, params, device="cuda"):

@@ -213,6 +213,9 @@ class TrainStep:
             if dtype is not None and guard else 0
         self.steps = 0
         self.guard_reports = []
+        #: the last whole-batch step's output (NCHW images of an image net),
+        #: for the epoch's image samples
+        self.last_output = None
 
     def chain(self, batch, valid):
         """The device chain of one uint8 bucket (NHWC float32, unmasked);
@@ -278,6 +281,7 @@ class TrainStep:
                 x = model(x, valid_t if single else None).to(torch.float32).T
             else:
                 x = model(x)
+        self.last_output = x.detach()
         return self.criterion(x, as_targets(targets, device))
 
     def _whole_gradients(self, bucket):

@@ -14,6 +14,9 @@ mode and without gradients (JAX ``train_step.py:357-410``
 ``get_eval_loss_fn``): on the card its pool is the ``gem_l2n`` kernel. Any
 other batch or net, a ``SequentialNetwork`` among them, goes through the
 network's own wrappers (``network(images)``), as the JAX package's does.
+The loader's host transform computes its device steps (CLAHE, colorspaces)
+on the network's device (``data.transforms.on_device``), as the training
+epoch's does.
 """
 import copy
 
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 
 from ..data.datasets import initialize_dataset_loader
+from ..data.transforms import on_device
 from ..optim.criteria import initialize_criterion
 from ..optim.scores import initialize_score
 from ..tools.stats import StopWatch
@@ -121,6 +125,8 @@ class LossValidation(_ScheduledValidation):
 
     def _prepare(self, network, logger, watch):
         dataset = self.data_loader.dataset
+        # a host transform's device steps run where the network is
+        on_device(getattr(dataset, "transform", None), network.device)
         if not hasattr(dataset, "prepare_epoch"):
             return
         mining_stats = dataset.prepare_epoch(network)

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from ..ops.resize import resize_bilinear
 from ..ops.whitening import whitenapply
+from ..tools.utils import local_path
 
 
 class Compose:
@@ -165,10 +166,11 @@ class CirFakeTupleBatch(FakeBatch):
 
 
 class CirtorchWhiten(Wrapper):
-    """Learned whitening P[:dims] (x - m) + L2, parameters from a pkl."""
+    """Learned whitening P[:dims] (x - m) + L2, parameters from a pkl (a
+    local path, or a URL read from its local file)."""
 
     def __init__(self, whitening, dimensions=None):
-        with open(whitening, "rb") as handle:
+        with open(local_path(whitening), "rb") as handle:
             whit = pickle.load(handle)
         self.P = torch.from_numpy(np.asarray(whit["P"], np.float32))
         self.m = torch.from_numpy(np.asarray(whit["m"], np.float32))

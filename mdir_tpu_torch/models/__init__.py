@@ -1,6 +1,7 @@
 """Model registry: label -> model factory (``mdir_tpu/models/__init__.py``
 ``MODEL_LABELS``): ``identity``, the U-Net translators, the pixel-wise
-autoencoders and the ``cirnet`` retrieval nets.
+autoencoders, the ``cirnet`` retrieval nets and the branched
+``cirnet_branched`` (``branched.py``).
 
 ``initialize_model`` takes the params dict of ``mdir_tpu.models``
 (``architecture`` key plus the factory's keys) and a ``device``. Weights are
@@ -17,7 +18,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from . import autoencoder, torch_import, unet
+from ..tools.utils import local_path
+from . import autoencoder, branched, torch_import, unet
 from .retrievalnet import ImageRetrievalNet
 
 
@@ -43,8 +45,9 @@ def init_weights(model, seed=0):
 
 
 def load_whitening_pkl(model, whitening_path):
-    """Whitening pkl {'P', 'm'} -> whiten Linear (weight P, bias -P m)."""
-    with open(whitening_path, "rb") as handle:
+    """Whitening pkl {'P', 'm'} -> whiten Linear (weight P, bias -P m);
+    a URL is read from its local file (``tools/utils.py::local_path``)."""
+    with open(local_path(whitening_path), "rb") as handle:
         whit = pickle.load(handle)
     P = np.asarray(whit["P"], np.float32)
     m = np.asarray(whit["m"], np.float32).reshape(-1, 1)
@@ -121,14 +124,7 @@ MODEL_LABELS = {
     "pixelconv_res": _make_unet(autoencoder.PixelConvRes),
     "autoencoder_regr": _make_unet(autoencoder.AutoencoderRegr),
     "cirnet": _make_cirnet,
-}
-
-
-#: architectures of the JAX package the port does not build yet, and why
-NOT_PORTED = {
-    "cirnet_branched": "the branched retrieval net (JAX models/branched.py, "
-                       "BranchedRetrievalNet) is ROADMAP queue 1 item 6.3, "
-                       "the next slice",
+    "cirnet_branched": branched.init_cirnet_branched,
 }
 
 
@@ -138,8 +134,4 @@ def initialize_model(params, device="cuda", seed=0):
     checkpoint (the draw costs about a second for a full P2pUNet)."""
     device = resolve_device(device)
     params = dict(params)
-    architecture = params.pop("architecture")
-    if architecture in NOT_PORTED:
-        raise NotImplementedError("architecture %r is not ported: %s"
-                                  % (architecture, NOT_PORTED[architecture]))
-    return MODEL_LABELS[architecture](device, seed, **params)
+    return MODEL_LABELS[params.pop("architecture")](device, seed, **params)

@@ -17,6 +17,9 @@ numpy arrays -- from a JAX model in memory or from its msgpack checkpoint --
 * ``pool/p``                                -> ``pool.p``
 * a regional (Rpool) net's ``pool/p`` and ``pool_whiten`` -> cirtorch's
   ``pool.rpool.p`` and ``pool.whiten``
+* a branched net's (``cirnet_branched``) ``branches_<name>/<idx>/conv/
+  {kernel,bias}`` -> ``branches.<name>.<idx>.{weight,bias}``; its post
+  stack ``features``, ``pool/p`` and ``whiten`` as above
 
 ``to_jax_variables`` reads a port state dict back into a flax tree.
 
@@ -40,6 +43,8 @@ _RESNET_STEM = {"conv1": "0", "bn1": "1"}
 #: a regional net's head in cirtorch's names (the JAX package renames them
 #: on import, ``mdir_tpu/models/torch_import.py:206-210``)
 _RPOOL = {"pool": "pool.rpool", "pool_whiten": "pool.whiten"}
+#: a branched net's branch scope (JAX ``branched.py:64``)
+_BRANCH = "branches_"
 
 
 def _module_name(path, regional=False):
@@ -47,6 +52,8 @@ def _module_name(path, regional=False):
     head, rest = path[0], list(path[1:])
     if regional and head in _RPOOL:
         return ".".join([_RPOOL[head]] + rest)
+    if head.startswith(_BRANCH):
+        return ".".join(["branches", head[len(_BRANCH):]] + rest)
     if head != "features" or not rest:
         return ".".join([head] + rest)
     if rest[0].isdigit():  # alexnet/vgg: torchvision's own index

@@ -84,6 +84,28 @@ class Rpool(nn.Module):
         return pool_ops.l2n(vecs.sum(dim=-2))
 
 
+def global_pool(o, valid_hw, pool, pooling):
+    """The global head over each image's valid extent (the whole map when
+    ``valid_hw`` is None), then L2N: ``pool`` (``GeMPoolL2N``) for GeM,
+    else the plain masked MAC or SPoC."""
+    if valid_hw is None:
+        valid_hw = torch.tensor(o.shape[-2:], dtype=torch.int32,
+                                device=o.device).expand(o.shape[0], 2)
+    valid_hw = valid_hw.to(torch.int32).contiguous()
+    if pool is not None:
+        return pool(o, valid_hw)
+    mask = pool_ops.feature_mask(o.shape[-2:], valid_hw, o.dtype)
+    return pool_ops.l2n(pool_ops.POOLING[pooling](o, mask=mask))
+
+
+def whiten_l2n(o, whiten):
+    """The optional ``whiten`` Linear, then L2N, in the layer's dtype (the
+    GeM kernel gives float32 for bf16 maps)."""
+    if whiten is None:
+        return o
+    return pool_ops.l2n(whiten(o.to(whiten.weight.dtype)))
+
+
 class ImageRetrievalNet(nn.Module):
 
     def __init__(self, architecture="resnet101", local_whitening=False,
@@ -162,23 +184,8 @@ class ImageRetrievalNet(nn.Module):
         if self.needs_region_boxes:
             o = self._regional_pool(o, region_boxes)
         else:
-            if valid_hw is None:
-                valid_hw = torch.tensor(
-                    o.shape[-2:], dtype=torch.int32,
-                    device=o.device).expand(o.shape[0], 2)
-            valid_hw = valid_hw.to(torch.int32).contiguous()
-            if self.pool is not None:
-                o = self.pool(o, valid_hw)
-            else:
-                mask = pool_ops.feature_mask(o.shape[-2:], valid_hw,
-                                             o.dtype)
-                o = pool_ops.l2n(pool_ops.POOLING[self.pooling](o,
-                                                                mask=mask))
-
-        if self.whiten is not None:
-            # in the layer's dtype: the GeM kernel gives float32 for bf16
-            o = pool_ops.l2n(self.whiten(o.to(self.whiten.weight.dtype)))
-        return o
+            o = global_pool(o, valid_hw, self.pool, self.pooling)
+        return whiten_l2n(o, self.whiten)
 
     def _regional_pool(self, o, region_boxes):
         """RMAC or Rpool, then L2N: over ``region_boxes`` in a padded

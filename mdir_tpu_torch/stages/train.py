@@ -1,6 +1,8 @@
 """train stage: the epoch loop of mine -> train -> validate -> close_epoch,
 as ``mdir_tpu/stages/train.py``: ``epochs: 0`` saves the off-the-shelf
-network (``<name>_notrain.ckpt``) and returns; the resource statistics are
+network (``<name>_notrain.ckpt``) and returns; a fresh run logs the
+network's constants (its graph) before the first epoch; the resource
+statistics are
 taken at the last step of the last epoch; the result is
 ``(learning.metadata,)`` with the JAX package's metric keys, e.g.
 ``train/learning/loss:total_avg.4``.
@@ -16,6 +18,12 @@ def train(params, data, device="cuda"):
     if learning.training.epoch == -1 and not learning.training.remains_epochs:
         learning.checkpoints.save_notrain(learning.network.state_dict())
         return ({},)
+
+    if learning.training.epoch == -1:
+        for const_data in learning.network.const_data():
+            learning.events.register_data(
+                None, None, None, "net/%s" % const_data["key"],
+                const_data["data"], const_data["dtype"])
 
     for epoch in learning:
         logger = (lambda e: lambda iteration, size, label, value, dtype:

@@ -6,8 +6,10 @@ RGB outputs are denormalised with mean/std, optionally stretched, then
 clipped to uint8. An output in lab, luv or lsh (a ``tospace`` transform) is
 denormalised, clipped to the space's range and converted back to RGB with
 the float conversions of ``ops/colorspace.py`` (the JAX package calls cv2's)
-on the host's CPU, in the JAX package's order of operations. The comparison
-grid (``makegrid``) comes with the html report (queue 1 item 7).
+on the host's CPU, in the JAX package's order of operations. ``makegrid``
+lays [input, ground truth, output] thumbnails out as one comparison image,
+shrunk with PIL's ``thumbnail`` as the JAX package shrinks them (PIL is
+imported inside it: no path of the card's calls it).
 """
 import numpy as np
 import torch
@@ -85,3 +87,33 @@ def get_image(imgs, mean_std, colortransforms, stretch_by=False):
     elif "add_meanstd" in colortransforms:
         imgs = [imgs[0][..., :1], imgs[1][..., :1]]
     return _tensor_to_image(imgs[1], mean_std, colortransforms, stretch_by)
+
+
+def makegrid(imgs, size, mean_std, colortransforms):
+    """A comparison grid of [input, gnd, output] thumbnails (at most
+    ``size`` on a side each) as a uint8 RGB array: input and ground truth on
+    the first row, the output under the ground truth (JAX ``makegrid``)."""
+    from PIL import Image
+
+    imgs = [np.asarray(x) for x in imgs]
+    if len(imgs) == 3:
+        rows = [[imgs[0][..., 0:3], imgs[1][..., 0:3]],
+                [None, imgs[2][..., 0:3]]]
+    elif len(imgs) == 2:
+        rows = [[imgs[0][..., 0:3], imgs[1][..., 0:3]]]
+    else:
+        rows = [[imgs[0][..., 0:3]]]
+
+    acc = []
+    for row in rows:
+        acci = []
+        for img in row:
+            if img is not None:
+                arr = _tensor_to_image(img, mean_std, colortransforms)
+            else:
+                arr = np.zeros(rows[-1][-1].shape[:2] + (3,), np.uint8)
+            pimg = Image.fromarray(arr)
+            pimg.thumbnail((size, size))
+            acci.append(np.array(pimg))
+        acc.append(np.concatenate(acci, axis=1))
+    return np.concatenate(acc, axis=0)

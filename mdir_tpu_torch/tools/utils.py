@@ -1,5 +1,7 @@
 """Small shared helpers: data root, parameter merging, the DSL's tuples,
-paths, the artifact hash check and the local file of an artifact URL."""
+paths, the artifact hash check and the local file of an artifact URL
+(``resolve_artifact``, ``local_path``: every entry that takes a published
+file by URL reads it through them)."""
 import copy
 import hashlib
 import os
@@ -64,4 +66,13 @@ def resolve_artifact(url, artifacts=None):
             % (url, path))
     with open(path, "rb") as handle:
         validate_hash(handle.read(), path)
+    return path
+
+
+def local_path(path, artifacts=None):
+    """``path`` itself, or for an ``http(s)://`` URL its local file by
+    ``resolve_artifact`` (the JAX package's ``load_url`` into
+    ``<data root>/networks``, without the download)."""
+    if str(path).startswith(("http://", "https://")):
+        return resolve_artifact(str(path), artifacts)
     return path

@@ -1,9 +1,10 @@
 """The port's import closure, and what ``chip_smoke.py`` does without a card.
 
 The card's machine has torch, numpy and scipy but no JAX and no PIL, cv2,
-yaml or msgpack. A subprocess with those modules blocked imports every module
-of ``mdir_tpu_torch`` and ``chip_smoke`` itself, runs the lab CLAHE chain,
-trains (and resumes) a small net on in-memory images, trains a U-Net
+yaml, msgpack, tensorboardX or matplotlib. A subprocess with those modules
+blocked imports every module of ``mdir_tpu_torch`` and ``chip_smoke``
+itself, runs the lab CLAHE chain, trains (and resumes) a small net on
+in-memory images (its image samples written without PIL), trains a U-Net
 translator on in-memory image pairs through the six augmentations with loss
 validation, and then jointly with an embedder, and runs a U-Net
 composition's extraction and the eval entry's URL lookup, as the smoke
@@ -19,7 +20,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "jaxlib", "flax", "mdir_tpu", "cv2", "PIL", "yaml",
-           "msgpack")
+           "msgpack", "tensorboardX", "matplotlib")
 
 IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -44,7 +45,10 @@ trained = {"mdir_tpu_torch.stages.train", "mdir_tpu_torch.learning.learning",
            "mdir_tpu_torch.models.convert", "mdir_tpu_torch.ops.resize",
            "mdir_tpu_torch.learning.validation",
            "mdir_tpu_torch.learning.checkpoints",
-           "mdir_tpu_torch.data.transforms", "mdir_tpu_torch.data.readers"}
+           "mdir_tpu_torch.data.transforms", "mdir_tpu_torch.data.readers",
+           "mdir_tpu_torch.models.branched", "mdir_tpu_torch.tools.events",
+           "mdir_tpu_torch.tools.htmlreport", "mdir_tpu_torch.tools.plots",
+           "mdir_tpu_torch.tools.sysstats", "mdir_tpu_torch.tools.warmup"}
 assert trained <= set(sys.modules), trained - set(sys.modules)
 loaded = sorted(name for name in sys.modules
                 if name.split(".")[0] in %r and sys.modules[name] is not None)
@@ -198,6 +202,9 @@ train(scenario(1), (), device="cpu")
 meta, = train(scenario(2), (), device="cpu")
 losses = meta["metrics"]["train/learning/loss:total_avg.4"]
 assert len(losses) == 2 and all(np.isfinite(losses)), losses
+# the first step's image samples, written without PIL
+blobs = os.listdir(os.path.join(root, "epochs", "blobs"))
+assert "train_data_input:image0.rgb:0:0.png" in blobs, blobs
 print("trained", len(losses))
 """ % (BLOCKED,)
 

@@ -15,7 +15,8 @@ an ``OptimizerAlternation``, in the port against the JAX package.
 * A multi-network checkpoint: two epochs resumed to three equal three
   straight epochs (losses, every member's weights and statistics), with the
   JAX package's files (``_network_names``, the frozen member stored once).
-* ``cirnet_branched``, the next slice's net, still raises.
+* ``cirnet_branched`` (a branched embedder of four channels) builds and
+  takes a joint step.
 """
 import copy
 import os
@@ -340,7 +341,7 @@ def test_resume_equals_a_straight_run(sfm_db, tmp_path):
     first, = train(scenario(tmp_path / "resumed", db, load, 2), (),
                    device="cpu")
     files = sorted(os.listdir(tmp_path / "resumed" / "epochs"))
-    assert files == ["embed_epoch_02.ckpt", "embed_frozen.ckpt",
+    assert files == ["blobs", "embed_epoch_02.ckpt", "embed_frozen.ckpt",
                      "embed_last.ckpt", "learning_epoch_02.ckpt",
                      "net_epoch_02.ckpt", "net_last.ckpt",
                      "translate_epoch_02.ckpt", "translate_last.ckpt"], files
@@ -364,9 +365,39 @@ def test_resume_equals_a_straight_run(sfm_db, tmp_path):
         assert torch.equal(want[name], value), name
 
 
-def test_branched_net_still_raises():
-    """``cirnet_branched`` (ROADMAP queue 1 item 6.3) raises, naming why."""
-    from mdir_tpu_torch.models import initialize_model
-
-    with pytest.raises(NotImplementedError, match="6.3"):
-        initialize_model({"architecture": "cirnet_branched"}, device="cpu")
+def test_branched_net_takes_a_joint_step():
+    """``cirnet_branched`` builds, and takes a joint step behind a
+    translator that gives its four channels (RGB and a lightness branch,
+    summed at layer 1): the translator moves, the frozen embedder neither
+    moves nor gets a gradient."""
+    params = composition()
+    params["translate"]["model"]["out_channels"] = 4
+    params["embed"]["model"] = {
+        "architecture": "cirnet_branched", "cir_architecture": "alexnet",
+        "pooling": "gem", "whitening": False, "pretrained": False,
+        "channels": {
+            "merge": {"layer": 1, "aggregation": "sum"},
+            "branches": {"0_rgb": {"in": 3, "init": "clone", "weight": 1.0},
+                         "1_aux": {"in": 1, "init": "sum", "weight": 0.5}}}}
+    network = SequentialNetwork.initialize(params, device="cpu")
+    embed = network.networks["embed"].model
+    assert embed.meta["in_channels"] == 4
+    before = {name: [p.detach().clone() for p in
+                     network.networks[name].model.parameters()]
+              for name in network.sequence}
+    optimizer = initialize_optimizer(network, optimizer_params())
+    step = TrainStep(network, initialize_criterion(CRITERION),
+                     device_chain=chain_from_transform(
+                         initialize_transforms(PLAIN, MEAN_STD)))
+    images, targets = tuple_batch(1)
+    network.train()
+    optimizer.zero_grad()
+    loss, n = step.gradients([RawChainInput()(*tpl) for tpl in images],
+                             targets)
+    optimizer.step()
+    assert n == len(images) and np.isfinite(float(loss)) and float(loss) > 0
+    moved = {name: any(not torch.equal(a, b) for a, b in zip(
+        before[name], network.networks[name].model.parameters()))
+        for name in network.sequence}
+    assert moved == {"translate": True, "embed": False}
+    assert all(p.grad is None for p in embed.parameters())

@@ -258,8 +258,8 @@ def test_resume_equals_a_straight_run(db_pkl, tmp_path):
                                    atol=1e-8, msg=name)
     epochs = sorted(os.listdir(tmp_path / "resumed" / "epochs"))
     # checkpoint_every 1 rolls the earlier epochs away; no validation, so
-    # no best role
-    assert epochs == ["learning_epoch_03.ckpt", "net_epoch_03.ckpt",
+    # no best role; the image samples' blobs beside them, as JAX's
+    assert epochs == ["blobs", "learning_epoch_03.ckpt", "net_epoch_03.ckpt",
                       "net_last.ckpt"], epochs
 
 

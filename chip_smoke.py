@@ -6,7 +6,11 @@
 Phases, one line each with its wall time:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds every CUDA source of the port into
-     build/mdir_tpu_torch/ (seconds, registers, shared memory);
+     build/mdir_tpu_torch/ (seconds, registers, shared memory); while it
+     runs, phase 4's images and network are made and its passes that need
+     no kernel of the port run (the plain pool's, which also warms cuDNN
+     and the allocator, and the small input's on the CPU), and phase 9's
+     images are made (phase 15 crops them);
   3. kernel: the GeM+L2N kernel against its plain PyTorch version on the
      card, at the extraction shapes, ragged valid extents included, at
      p = 1, 2.5, 3 and 4.7 (the kernel multiplies out p = 1 and 3 and
@@ -215,6 +219,24 @@ Phases, one line each with its wall time:
      PNG sample blob read back equal, the device's memory statistics. It
      prints images/s, peak memory, launches, the weight log's time and the
      phase's seconds.
+ 17. several cards on ``torch.distributed``, as a world of one on NCCL
+     (one process cannot put two ranks on one card, and gloo on CUDA
+     tensors lacks reduce-scatter and all-gather): the validate stage's
+     ``CirDatasetAp`` with ``parallel: {data: 1}`` on phase 7's net and
+     the same 40 images (through its ``loader``), float32: descriptors
+     within 1e-6 of phase 7's, the same top-10 ranks and mAP, gem_l2n
+     launched 15 times and each chain kernel 5, the chain kernels
+     bit-equal and gem_l2n equal to their plain versions at the pass's
+     first chunk, images/s beside phase 7's; ``rank_database_sharded``
+     equal to ``rank_database`` on those descriptors; a single-card, a
+     data-parallel and a ZeRO step from phase 9's epoch-2 weights on its
+     first batch (adam, lr 1e-6), cuDNN deterministic: the DP step within
+     1e-6 (loss and parameters) of the single-card step, ZeRO within 1e-6
+     of DP, and the ZeRO optimizer's gathered state dict equal to the
+     single card's (the gap to phase 9's own float32 step is printed:
+     cuDNN's backward is not bit-reproducible there); and
+     ``dryrun_multicard(1, "cuda")``, which shares the group (finite
+     losses). It prints launches and the phase's seconds.
 Then one JSON line of kernels (gem_l2n, gem_l2n_bf16 timed at the bf16
 paths' maps, gem_l2n_f16 at the float16 path's, with its times at the bf16
 maps as off-path readings; each redesigned kernel tagged with the PR of
@@ -225,7 +247,8 @@ train step apart; on phase 12's runs, ``dump_path_launches``; on phase
 squeezenet maps, ``eval_stack_path``; on phase 15's,
 ``image_train_path_launches``; on phase 16's timed run,
 ``branched_path_launches``, and gem_l2n's times at its maps,
-``branched_path``), the
+``branched_path``; on phase 17's score pass and steps,
+``parallel_path_launches``), the
 nvidia-smi line, and the last line
 {"ok": true, "device": {...}}. Any failure raises (non-zero exit, no last
 line). Without a card, or without the port beside it, it fails at once.
@@ -382,6 +405,7 @@ BRANCHED_TRANSFORM = "pil2np | add_clahe_fromrgb:4:8:lab | totensor | " \
     "normalize"
 BRANCHED_MEAN_STD = ([0.485, 0.456, 0.406, 0.5], [0.229, 0.224, 0.225, 0.25])
 BRANCHED_EXACT = 8  # images held against the exact per-image path
+PARALLEL_IMAGES = {}  # name -> (H, W, 3) uint8, served by parallel_loader
 
 T0 = time.perf_counter()
 
@@ -988,6 +1012,13 @@ def make_train_images(rng, clusters=TRAIN_CLUSTERS, crops=2,
                 img, 0, 255).astype(np.uint8)
 
 
+def train_images():
+    """Phase 9's images, made once (phase 15 crops them)."""
+    if not TRAIN_IMAGES:
+        make_train_images(np.random.RandomState(SEED))
+    return TRAIN_IMAGES
+
+
 def train_scenario(directory, db_pkl, epochs):
     """The paper's CLAHE N/D model as the JAX package trains it (cirtorch's
     train.py defaults, example_params.yml's loss and optimizer), on the
@@ -1057,9 +1088,8 @@ def train_phase(device, clahe, lab_trilinear, pooling_kernel):
     root = os.path.join(_build.BUILD_ROOT, "smoke", "train")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
-    make_train_images(np.random.RandomState(SEED))
     db_pkl = os.path.join(root, "db.pkl")
-    names = sorted(TRAIN_IMAGES)
+    names = sorted(train_images())
     with open(db_pkl, "wb") as handle:
         pickle.dump({"train": {
             "cids": ["/smoke/%s" % name for name in names],
@@ -1261,7 +1291,6 @@ def train_phase(device, clahe, lab_trilinear, pooling_kernel):
     # 6. two steps under auto (bf16 trunk, the guard) beside float32
     bf16 = bf16_train_steps(device, dataset, saved[TRAIN_EPOCHS - 1])
     shutil.rmtree(root, ignore_errors=True)
-    TRAIN_IMAGES.clear()
     return {"launches": launches, "gem_err": gem_err, "bf16": bf16}
 
 
@@ -1347,10 +1376,12 @@ def composition_phase(device, db, queries, gnd, whiten_path, pooling_kernel,
                        for v in out)
         return rank_database(vecs, qvecs).cpu().numpy()
 
+    # the plain pool's run, which also records the pool's inputs and warms
+    # cuDNN and the allocator for the timed run
     gem_in = []
     with mock.patch.object(pooling_kernel, "gem_l2n",
-                           recording_pool(pooling_kernel.gem_l2n, gem_in)):
-        run_path((db, queries))  # warm-up: cuDNN plans, allocator
+                           recording_pool(gem_l2n_plain, gem_in)):
+        pout, _ = run_path((db, queries))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     events, padded = [], []
@@ -1396,8 +1427,6 @@ def composition_phase(device, db, queries, gnd, whiten_path, pooling_kernel,
         "mP@1/5/10 %s" % (launches, chunks, len(SCALES), mean_ap,
                           np.round(pr, 4).tolist()))
 
-    with mock.patch.object(pooling_kernel, "gem_l2n", gem_l2n_plain):
-        pout, _ = run_path((db, queries))
     desc_err = max(np.abs(a - b).max() for a, b in zip(out, pout))
     check(desc_err <= DESC_ATOL, ("descriptors vs plain pool", desc_err))
     check((ranks[:10] == ranks_of(pout)[:10]).all(),
@@ -1666,6 +1695,7 @@ def bf16_train_steps(device, dataset, state):
                                            (b + 1) * TRAIN_BATCH)]
         batches.append(([tpl for tpl, _ in items], [t for _, t in items]))
     runs = {}
+    first = {}  # the float32 first step, phase 17's single-card reference
     for mode in ("float32", "auto"):
         net = initialize_network(None, device, state,
                                  {"compute_dtype": mode}).train()
@@ -1685,6 +1715,12 @@ def bf16_train_steps(device, dataset, state):
             times.append(time.perf_counter() - t)
             peaks.append(torch.cuda.max_memory_allocated())
             losses.append(float(loss))
+            if mode == "float32" and not first:
+                first.update(
+                    images=images, targets=targets, loss=losses[0],
+                    chain=dataset.device_chain, state=state,
+                    params={k: p.detach().clone() for k, p
+                            in net.model.named_parameters()})
         runs[mode] = (step, times, peaks, losses)
         check(all(np.isfinite(x) and x > 0 for x in losses),
               ("finite positive losses", mode, losses))
@@ -1710,7 +1746,7 @@ def bf16_train_steps(device, dataset, state):
            ["%.6f" % x for x in losses], ["%.6f" % x for x in f32_losses]))
     return {"guard": guard, "s_per_step": times[1],
             "f32_s_per_step": f32_times[1], "peak": peaks[1],
-            "f32_peak": f32_peaks[1]}
+            "f32_peak": f32_peaks[1], "first_step": first}
 
 
 def dump_loader(path):
@@ -2186,7 +2222,8 @@ def photometric_phase(device, db, queries, path, clahe, lab_trilinear,
         transform = initialize_transforms(dsl, mean_std)
         check(preprocess.chain_from_transform(transform) is not None,
               (dsl, "lowers to the device chain"))
-        run(transform, (db, queries))  # warm-up
+        if space == "lsh":  # one warm pass (phase 7's net and shapes)
+            run(transform, (db, queries))
         chains = []
         out, chunks = timed(space, transform, (db, queries), chains)
         counted = launches[space]
@@ -2960,8 +2997,7 @@ def image_train_phase(device, clahe, lab_trilinear, pooling_kernel,
     card_cpu_image_step("imgtr", device, state, images[:2], targets[:2])
 
     # 2. the joint N/D training
-    make_train_images(np.random.RandomState(SEED), images=JOINT_IMAGES)
-    for name, img in JOINT_IMAGES.items():  # square crops of phase 9's
+    for name, img in train_images().items():  # square crops of phase 9's
         JOINT_IMAGES[name] = np.ascontiguousarray(img[:JOINT_SIDE,
                                                       :JOINT_SIDE])
     names = sorted(JOINT_IMAGES)
@@ -3469,6 +3505,263 @@ def branched_phase(device, db, queries, gnd, whiten_path, clahe,
         chunks=chunks, step=step, weight_log_s=log_s)}
 
 
+def parallel_loader(path):
+    """Phase 17's score loader: phase 4's in-memory images by name."""
+    return PARALLEL_IMAGES[os.path.basename(path)]
+
+
+def smoke_step(device, reference, runtime=None, mesh=None):
+    """Phase 9's first float32 step (adam, lr 1e-6, one group) from its
+    weights on its batch, through ``TrainStep`` on ``mesh``; ZeRO when
+    ``runtime`` says so. Returns (loss, parameters, the optimizer)."""
+    from mdir_tpu_torch.learning.network import initialize_network
+    from mdir_tpu_torch.learning.train_step import TrainStep
+    from mdir_tpu_torch.optim.criteria import initialize_criterion
+    from mdir_tpu_torch.optim.optimizers import Optimizer
+
+    net = initialize_network(None, device, reference["state"],
+                             dict(FLOAT32_RUNTIME, **(runtime or {})))
+    net.train()
+    step = TrainStep(net, initialize_criterion(
+        {"loss": "contrastive", "margin": 0.7, "eps": 1e-6}),
+        device_chain=reference["chain"], mesh=mesh)
+    optimizer = Optimizer(torch.optim.Adam(
+        [{"params": list(net.model.parameters()), "lr": 1e-6}]),
+        {"default": 1e-6}, ["default"])
+    if step.param_sharding == "zero":
+        optimizer.shard_state(mesh)
+    optimizer.zero_grad()
+    loss, _ = step.gradients(reference["images"], reference["targets"])
+    optimizer.step()
+    if net.device.type == "cuda":
+        torch.cuda.synchronize()
+    return float(loss), dict(net.model.named_parameters()), optimizer
+
+
+def parallel_phase(device, db, queries, gnd, path, reference, clahe,
+                   lab_trilinear, pooling_kernel, gem_l2n_plain, smi):
+    """Phase 17: several cards on ``torch.distributed``, at world 1 on
+    NCCL (the one card): the validate stage's ``CirDatasetAp`` with
+    ``parallel: {data: 1}`` on phase 7's net and images, sharded ranking,
+    a single-card, a data-parallel and a ZeRO step from phase 9's weights
+    on its batch (cuDNN deterministic, so that they compare bit for bit),
+    and ``dryrun_multicard(1, "cuda")`` in the same group. Returns the
+    launches of its runs."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from mdir_tpu_torch import _build
+    from mdir_tpu_torch.dryrun import dryrun_multicard
+    from mdir_tpu_torch.ops.ranking import (compute_map, rank_database,
+                                            rank_database_sharded)
+    from mdir_tpu_torch.optim import scores
+    from mdir_tpu_torch.parallel import extract
+    from mdir_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    root = os.path.join(_build.BUILD_ROOT, "smoke", "parallel")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(root, "store"), 1), world_size=1, rank=0)
+    mesh = make_mesh(1, device)
+    check(mesh.collective and dist.get_backend() == "nccl",
+          "a world of one on NCCL")
+    mesh.all_reduce([torch.zeros(1, device=device)])  # NCCL's communicator
+    torch.cuda.synchronize()
+    say("parallel", "NCCL group of one and its communicator: %.2f s"
+        % (time.perf_counter() - t))
+
+    # 1. the validate stage's score over the mesh, phase 7's net
+    names = {"db%02d" % i: img for i, img in enumerate(db)}
+    names.update(("q%02d" % i, img) for i, img in enumerate(queries))
+    PARALLEL_IMAGES.update(names)
+    db_names = ["db%02d" % i for i in range(len(db))]
+    with open(os.path.join(root, "db.pkl"), "wb") as handle:
+        pickle.dump({"identifier": db_names}, handle)
+    with open(os.path.join(root, "queries.pkl"), "wb") as handle:
+        pickle.dump({"query": ["q%02d" % i for i in range(len(queries))],
+                     "bbx": [None] * len(queries),
+                     "ok": [[db_names[i] for i in g["ok"]] for g in gnd],
+                     "junk": [[db_names[i] for i in g["junk"]]
+                              for g in gnd]}, handle)
+    network = path["network"]
+    score = scores.initialize_score({
+        "type": "cirdatasetap", "image_size": IMAGE_SIZE,
+        "dataset": {"name": "smoke", "db": os.path.join(root, "db.pkl"),
+                    "queries": os.path.join(root, "queries.pkl"),
+                    "imgdir": root},
+        "transforms": CLAHE_TRANSFORM,
+        "mean_std": (network.model.meta["mean"], network.model.meta["std"]),
+        "parallel": {"data": 1}, "loader": parallel_loader})
+    out, ranked, chain_in, pool_in = [], [], [], []
+    extract_fn, rank_fn = scores.extract_vectors_network, \
+        scores.rank_database_sharded
+    make_chain = extract.preprocess.make_bucketed_chain
+
+    def recorded_extract(*args, **kwargs):
+        out.append(extract_fn(*args, **kwargs))
+        return out[-1]
+
+    def recorded_rank(vecs, qvecs, on):
+        ranked.append((vecs, qvecs, rank_fn(vecs, qvecs, on)))
+        return ranked[-1][2]
+
+    def first_chunk(chain_fn):
+        def fn(batch, aux):
+            if not chain_in:
+                chain_in.append((batch.clone(),
+                                 {k: v.clone() for k, v in aux.items()}))
+            return chain_fn(batch, aux)
+        return fn
+
+    def recorded_pool(x, valid_hw, p, eps=1e-6):
+        if not pool_in:
+            pool_in.append((x.clone(), valid_hw.clone()))
+        return pool_launch(x, valid_hw, p, eps=eps)
+
+    pool_launch = pooling_kernel.gem_l2n
+    torch.cuda.synchronize()
+    pooling_kernel.reset_launches()
+    lab_trilinear.reset_launches()
+    clahe.reset_launches()
+    t = time.perf_counter()
+    with mock.patch.object(scores, "extract_vectors_network",
+                           recorded_extract), \
+            mock.patch.object(scores, "rank_database_sharded",
+                              recorded_rank), \
+            mock.patch.object(extract.preprocess, "make_bucketed_chain",
+                              lambda chain: first_chunk(make_chain(chain))), \
+            mock.patch.object(pooling_kernel, "gem_l2n", recorded_pool):
+        averages = score(network)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launches = {"validate": kernel_counts(clahe, lab_trilinear,
+                                          pooling_kernel)}
+    n_images = len(db) + len(queries)
+    say("parallel", "CirDatasetAp, parallel {data: 1}, VGG16-GeM lab CLAHE: "
+        "%d images %.2f s, %.1f images/s (phase 7: %.1f); launches %s"
+        % (n_images, seconds, n_images / seconds, path["images_per_s"],
+           launches["validate"]))
+    # the score's descriptors against phase 7's, its ranks and mAP
+    check(len(out) == 2 and len(ranked) == 1, ("recorded", len(out)))
+    desc_err = max(float(np.abs(a - b).max())
+                   for a, b in zip(out, path["out"]))
+    check(desc_err <= 1e-6, ("sharded descriptors vs phase 7", desc_err))
+    ranks = ranked[0][2].cpu().numpy()
+    check((ranks[:10] == path["ranks"][:10]).all(),
+          "top-10 ranks vs phase 7")
+    phase7_map = compute_map(path["ranks"], gnd)[0]
+    check(averages["map"] == phase7_map, ("mAP vs phase 7", averages,
+                                          phase7_map))
+    # phase 7's chunks (5 at its shapes): gem_l2n 15, each chain kernel 5
+    check(launches["validate"] == path["launches"]
+          and launches["validate"]["lab_n"] > 0,
+          ("launches vs phase 7's", launches, path["launches"]))
+    # 2. rank_database_sharded against rank_database on those descriptors
+    vecs, qvecs, _ = ranked[0]
+    check(torch.equal(rank_database_sharded(vecs, qvecs, mesh),
+                      rank_database(vecs, qvecs)),
+          "rank_database_sharded vs rank_database")
+    say("parallel", "descriptors within %.2e of phase 7's, top-10 ranks and "
+        "mAP %.4f equal; rank_database_sharded equal to rank_database"
+        % (desc_err, averages["map"]))
+
+    try:
+        # 3. the four kernels at the pass's first chunk against plain
+        batch, aux = chain_in[0]
+        grid = tuple(path["grid"])
+        check_equal(lab_trilinear.lab_n(batch),
+                    lab_trilinear.lab_n_plain(batch), ("lab_n", "parallel"))
+        clahe_against_plain(clahe, lab_trilinear.lab_l_u8(batch), aux, grid,
+                            ("parallel", tuple(batch.shape)))
+        x, valid = pool_in[0]
+        pool_err = kernel_against_plain(pooling_kernel, gem_l2n_plain, x,
+                                        valid)
+        say("parallel", "first chunk %s: lab_n, clahe_tile_luts and "
+            "clahe_interp bit-equal to plain; gem_l2n at its map %s within "
+            "%.2e" % (tuple(batch.shape), tuple(x.shape), pool_err))
+
+        # 4. a single-card, a DP and a ZeRO step at world 1 from phase 9's
+        # weights on its batch, cuDNN deterministic (its backward is not
+        # bit-reproducible otherwise)
+        steps = {}
+        cudnn = torch.backends.cudnn
+        flags = cudnn.deterministic, cudnn.benchmark
+        cudnn.deterministic, cudnn.benchmark = True, False
+        try:
+            for tag, runtime, on in (
+                    ("single_step", None, None), ("dp_step", None, mesh),
+                    ("zero_step", {"param_sharding": "zero"}, mesh)):
+                pooling_kernel.reset_launches()
+                lab_trilinear.reset_launches()
+                clahe.reset_launches()
+                t = time.perf_counter()
+                steps[tag] = smoke_step(device, reference, runtime, on)
+                launches[tag] = kernel_counts(clahe, lab_trilinear,
+                                              pooling_kernel)
+                say("parallel", "%s: loss %.6f, %.2f s, launches %s"
+                    % (tag, steps[tag][0], time.perf_counter() - t,
+                       launches[tag]))
+        finally:
+            cudnn.deterministic, cudnn.benchmark = flags
+        check(steps["zero_step"][2].mesh is mesh, "ZeRO optimizer sharded")
+
+        def gap(params, other):
+            return max(float((params[k].detach() - other[k].detach())
+                             .abs().max()) for k in other)
+
+        for tag, against in (("dp_step", "single_step"),
+                             ("zero_step", "dp_step"),
+                             ("single_step", None)):
+            loss, params, _ = steps[tag]
+            if against is None:  # phase 9's own float32 step: printed
+                ref_loss, ref_params = reference["loss"], reference["params"]
+            else:
+                ref_loss, ref_params = steps[against][:2]
+            err = gap(params, ref_params)
+            check(against is None or (abs(loss - ref_loss)
+                                      <= 1e-6 * abs(ref_loss)
+                                      and err <= 1e-6),
+                  (tag, "vs", against, loss, ref_loss, err))
+            say("parallel", "%s against the %s: loss %.6f vs %.6f, max "
+                "|param diff| %.2e" % (tag, against or "phase 9 step (not "
+                                       "deterministic; printed)", loss,
+                                       ref_loss, err))
+        states = {tag: steps[tag][2].state_dict()["torch_state"]
+                  for tag in ("single_step", "zero_step")}
+        single, zero = (states[tag]["state"] for tag in states)
+        check(zero.keys() == single.keys()
+              and states["zero_step"]["param_groups"]
+              == states["single_step"]["param_groups"],
+              "ZeRO state_dict's parameters and groups")
+        for index, entry in single.items():
+            check(zero[index].keys() == entry.keys(), ("keys", index))
+            for key, value in entry.items():
+                check(torch.equal(zero[index][key].to(value.device), value),
+                      ("ZeRO state_dict vs single card", index, key))
+        say("parallel", "ZeRO state_dict (gathered) equal to the single "
+            "card's: %d parameters' moments and steps" % len(single))
+        del steps
+        # 5. the dry run, sharing this process's group of one
+        t = time.perf_counter()
+        lines = dryrun_multicard(1, "cuda")
+        losses = [float(m) for line in lines
+                  for m in re.findall(r"loss (-?[0-9.]+|nan|inf)", line)]
+        check(len(lines) == 4 and len(losses) == 3
+              and all(np.isfinite(losses)), ("dry run", lines))
+        say("parallel", "dryrun_multicard(1, 'cuda') in the group: %.2f s, "
+            "losses %s" % (time.perf_counter() - t, losses))
+    finally:
+        dist.destroy_process_group()
+        PARALLEL_IMAGES.clear()
+    say("parallel", "phase 17: %.1f s | %s" % (time.perf_counter() - t_phase,
+                                              smi))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; it runs on a card only")
@@ -3489,9 +3782,70 @@ def main():
     say("device", "%s | torch %s, CUDA %s" % (smi, torch.__version__,
                                               torch.version.cuda))
 
-    # 2. build
+    # 2. build. While nvcc runs, the main path's images and network are
+    # made, the passes that need no kernel of the port run (the plain
+    # pool's, which also warms cuDNN and the allocator for phase 4, and a
+    # small input's on the CPU), and phase 9's images are made
     t = time.perf_counter()
-    built = _build.build(_build.sources())
+    started = _build.start(_build.sources())
+    try:
+        rng = np.random.RandomState(SEED)
+        db, queries, gnd = make_images(rng)
+        whiten_dir = os.path.join(_build.BUILD_ROOT, "smoke")
+        os.makedirs(whiten_dir, exist_ok=True)
+        whiten_path = os.path.join(whiten_dir, "whiten_seed%d.pkl" % SEED)
+        dim = 2048
+        with open(whiten_path + ".tmp", "wb") as handle:
+            pickle.dump({"P": np.eye(dim) + 0.01 * rng.randn(dim, dim),
+                         "m": 0.01 * rng.randn(dim, 1)}, handle)
+        os.replace(whiten_path + ".tmp", whiten_path)
+        model = initialize_model(MODEL, device=device, seed=SEED)
+        network = CirNetwork(model, CirNetwork.NetworkParams(
+            model=dict(MODEL),
+            runtime={"wrappers": {"train": None, "eval": {
+                "0_cirwhiten": {"whitening": whiten_path, "dimensions": None},
+                "1_cirmultiscale": {"scales": SCALES}}}, **FLOAT32_RUNTIME}),
+            frozen=True)
+        transform = initialize_transforms(
+            "pil2np | totensor | normalize",
+            (model.meta["mean"], model.meta["std"]))
+
+        def run_path():
+            """Database and query descriptors, ranks; also the chunks."""
+            out, chunks = [], 0
+            for images in (db, queries):
+                extractor = network_extractor(network, transform)
+                check(extractor.host_dtype == np.uint8, "uint8 ingress")
+                for i, img in enumerate(images):
+                    extractor.add(i, img)
+                out.append(extractor.finish(len(images)))
+                chunks += extractor.chunks
+            vecs, qvecs = (torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                           for v in out)
+            ranks = rank_database(vecs, qvecs).cpu().numpy()
+            return out[0], out[1], ranks, chunks
+
+        def small_vecs(net):
+            """Descriptors of two small crops through ``net``."""
+            extractor = network_extractor(net, transform)
+            for i, img in enumerate((db[0][:256, :192],
+                                     queries[4][:192, :256])):
+                extractor.add(i, img)
+            return extractor.finish(2)
+
+        with mock.patch.object(pooling_kernel, "gem_l2n", gem_l2n_plain):
+            pvecs, pqvecs, pranks, _ = run_path()
+        cpu_small = small_vecs(CirNetwork(
+            initialize_model(MODEL, device="cpu", seed=SEED),
+            CirNetwork.NetworkParams(
+                model=dict(MODEL),
+                runtime=dict(network.network_params.runtime)),
+            frozen=True))
+        train_images()  # phases 9 and 15
+    except BaseException:
+        _build.stop(started)
+        raise
+    built = _build.finish(started)
     for name, library in built.items():
         say("build", "%s: %.1f s (nvcc %.1f s)" % (
             name, time.perf_counter() - t, library.seconds))
@@ -3531,43 +3885,7 @@ def main():
                half_err[dtype]))
     head_gradients_phase(device, gen)
 
-    # 4. the main path
-    rng = np.random.RandomState(SEED)
-    db, queries, gnd = make_images(rng)
-    whiten_dir = os.path.join(_build.BUILD_ROOT, "smoke")
-    os.makedirs(whiten_dir, exist_ok=True)
-    whiten_path = os.path.join(whiten_dir, "whiten_seed%d.pkl" % SEED)
-    dim = 2048
-    with open(whiten_path + ".tmp", "wb") as handle:
-        pickle.dump({"P": np.eye(dim) + 0.01 * rng.randn(dim, dim),
-                     "m": 0.01 * rng.randn(dim, 1)}, handle)
-    os.replace(whiten_path + ".tmp", whiten_path)
-    model = initialize_model(MODEL, device=device, seed=SEED)
-    network = CirNetwork(model, CirNetwork.NetworkParams(
-        model=dict(MODEL),
-        runtime={"wrappers": {"train": None, "eval": {
-            "0_cirwhiten": {"whitening": whiten_path, "dimensions": None},
-            "1_cirmultiscale": {"scales": SCALES}}}, **FLOAT32_RUNTIME}),
-        frozen=True)
-    transform = initialize_transforms("pil2np | totensor | normalize",
-                                      (model.meta["mean"], model.meta["std"]))
-
-    def run_path():
-        """Database and query descriptors, ranks; returns also the chunks."""
-        out, chunks = [], 0
-        for images in (db, queries):
-            extractor = network_extractor(network, transform)
-            check(extractor.host_dtype == np.uint8, "uint8 ingress")
-            for i, img in enumerate(images):
-                extractor.add(i, img)
-            out.append(extractor.finish(len(images)))
-            chunks += extractor.chunks
-        vecs, qvecs = (torch.from_numpy(np.ascontiguousarray(v)).to(device)
-                       for v in out)
-        ranks = rank_database(vecs, qvecs).cpu().numpy()
-        return out[0], out[1], ranks, chunks
-
-    run_path()  # warm-up: cuDNN plans, allocator
+    # 4. the main path, on the kernel
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     shapes_seen = []
@@ -3596,26 +3914,13 @@ def main():
         "mP@1/5/10 %s" % (launches, chunks, len(SCALES), mean_ap,
                           np.round(pr, 4).tolist()))
 
-    with mock.patch.object(pooling_kernel, "gem_l2n", gem_l2n_plain):
-        pvecs, pqvecs, pranks, _ = run_path()
     desc_err = max(np.abs(vecs - pvecs).max(), np.abs(qvecs - pqvecs).max())
     check(desc_err <= DESC_ATOL, ("descriptors vs plain pool", desc_err))
     check((ranks[:10] == pranks[:10]).all(), "top-10 ranks vs plain pool")
     say("main", "plain pool on the card: max |desc diff| %.2e, top-10 ranks "
         "equal" % desc_err)
 
-    small = [db[0][:256, :192], queries[4][:192, :256]]
-    cpu_model = initialize_model(MODEL, device="cpu", seed=SEED)
-    cpu_net = CirNetwork(cpu_model, CirNetwork.NetworkParams(
-        model=dict(MODEL), runtime=dict(network.network_params.runtime)),
-        frozen=True)
-    small_vecs = []
-    for net in (network, cpu_net):
-        extractor = network_extractor(net, transform)
-        for i, img in enumerate(small):
-            extractor.add(i, img)
-        small_vecs.append(extractor.finish(len(small)))
-    cross_err = np.abs(small_vecs[0] - small_vecs[1]).max()
+    cross_err = np.abs(small_vecs(network) - cpu_small).max()
     check(cross_err <= DESC_ATOL, ("card vs CPU", cross_err))
     say("main", "small input, card against CPU: max |desc diff| %.2e"
         % cross_err)
@@ -3710,6 +4015,11 @@ def main():
     branched = branched_phase(device, db, queries, gnd, path["whiten_path"],
                               clahe, lab_trilinear, pooling_kernel,
                               gem_l2n_plain, gen, smi)
+    # 17. several cards on torch.distributed, a world of one on NCCL
+    parallel = parallel_phase(device, db, queries, gnd, path,
+                              trained["bf16"]["first_step"], clahe,
+                              lab_trilinear, pooling_kernel, gem_l2n_plain,
+                              smi)
     sources = {"lab_n": ("mdir_tpu_torch/csrc/lab_n.cu",
                          "mdir_tpu/ops/lab_trilinear.py:493",
                          ["mdir_tpu/ops/lab_trilinear.py:359"],
@@ -3816,6 +4126,9 @@ def main():
             for run, counted in stack["launches"].items()}
         entry["branched_path_launches"] = branched["launches"].get(
             entry["name"], 0)
+        entry["parallel_path_launches"] = {
+            run: counted.get(entry["name"], 0)
+            for run, counted in parallel.items()}
         entry["image_train_path_launches"] = {
             "translator": image_train["translator"][entry["name"]],
             "joint": image_train["joint"][entry["name"]],

@@ -66,6 +66,13 @@ def _paths(name):
 def build(names):
     """Build the named sources that are not built yet, all nvcc processes at
     once; return {name: Library}. Raises on a failed or timed-out build."""
+    return finish(start(names))
+
+
+def start(names):
+    """Start the nvcc processes of the named sources that are not built
+    yet, all at once, and return without waiting: ``finish`` of the result
+    waits for them."""
     pending = {}
     built = {}
     for name in names:
@@ -80,6 +87,24 @@ def build(names):
             [_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         pending[name] = (proc, tmp, lib, report, time.perf_counter())
+    return pending, built
+
+
+def stop(started):
+    """Kill the builds ``start`` began that still run (a caller that fails
+    before ``finish``)."""
+    for proc, tmp, *_ in started[0].values():
+        if proc.poll() is None:
+            proc.kill()
+        proc.communicate()
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def finish(started):
+    """Wait for the builds ``start`` began; return {name: Library}. Raises
+    on a failed or timed-out build."""
+    pending, built = started
     errors = []
     for name, (proc, tmp, lib, report, t0) in pending.items():
         try:

@@ -12,6 +12,11 @@ and run through the validate stage on ``main``'s ``device`` (the card
 from the command line); the three score lines of the paper's table are
 printed.
 
+Several cards: ``torchrun --nproc_per_node N -m mdir_tpu_torch.eval
+scenario.yml`` with ``parallel: {data: N}`` in the score's section; each
+process joins the group through torch's ``env://`` rendezvous and runs on
+``cuda:<LOCAL_RANK>``, and rank 0 prints the scores.
+
 Nothing is downloaded. A ``path`` or ``whitening`` in the scenario that is
 a URL resolves to ``<artifacts>/<basename>`` with ``--artifacts DIR``, else
 to ``<data root>/networks/<basename>``, where the JAX package caches what it
@@ -23,7 +28,10 @@ import argparse
 import os
 import sys
 
+import torch.distributed as dist
+
 from .config.overlay import load_scenario
+from .parallel.mesh import join_torchrun, writes_files
 from .stages.validate import validate
 from .tools.utils import resolve_artifact
 
@@ -75,8 +83,16 @@ def main(argv=None, device="cuda"):
         sys.stderr.write("Scenario needs to be specified\n")
         return 1
 
-    metadata, = validate(resolve_urls(scenario, args.artifacts), (),
-                         device=device)
+    device, joined = join_torchrun(device)
+    writer = writes_files()
+    try:
+        metadata, = validate(resolve_urls(scenario, args.artifacts), (),
+                             device=device)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+    if not writer:
+        return 0
     for heading, section in metadata.items():
         print("\n%s\n" % heading.capitalize())
         for key, value in section.items():

@@ -26,10 +26,21 @@ or luv, ``tospace``) always runs on the card: the dataset's items are raw
 uint8 (``ops.preprocess.RawChainInput``) and the chain runs inside the step;
 mining extracts through the dataset's own transform. A transform that does
 not lower runs on the host in ``__getitem__``, its device transforms
-(``data.transforms.on_device``) on the network's device. A training mesh
-(``parallel: {data: N}``) raises (ROADMAP §1.7).
+(``data.transforms.on_device``) on the network's device.
+
+With ``parallel: {data: N}`` (JAX ``:118-134``) the step is data-parallel
+over the N ranks of the process group (``learning/train_step.py``), and
+under the network runtime's ``param_sharding: zero`` the optimizer keeps
+its state sharded (``Optimizer.shard_state``; an optimizer without it, as
+``OptimizerAlternation``, raises: ROADMAP item 7.3). Every rank trains on the
+tuples one process would: rank 0's host RNG states are taken by every rank
+before the epoch (the query subset, the pool, the shuffle), mining runs on
+every rank as on one card, and rank 0's picks (queries, positives,
+negatives) and mining statistics replace every rank's, since score gaps of
+1e-6 on random weights could split the ranks otherwise.
 """
 import copy
+import random
 
 import numpy as np
 import torch
@@ -38,9 +49,10 @@ from ..data.datasets import TuplesDataset, initialize_dataset_loader
 from ..data.transforms import on_device
 from ..ops.preprocess import RawChainInput, chain_from_transform
 from ..optim.criteria import initialize_criterion
+from ..parallel.mesh import make_mesh
 from ..tools.stats import StopWatch
 from ..tools.utils import get_dataset_params
-from .train_step import TrainStep
+from .train_step import TrainStep, whole_batch
 
 
 class SupervisedEpoch:
@@ -58,10 +70,11 @@ class SupervisedEpoch:
             raise TypeError("batch_average must be a bool, got %r"
                             % (batch_average,))
         self.batch_average = batch_average
-        if parallel and parallel.get("data", 0) > 1:
-            raise NotImplementedError(
-                "training over several cards is not ported yet (ROADMAP "
-                "§1.7)")
+        if parallel is not None and set(parallel) != {"data"}:
+            raise ValueError("parallel takes data only, not %s"
+                             % sorted(parallel))
+        self.parallel = parallel.get("data", 1) if parallel else 1
+        self.mesh = None  # made at the first step, on the network's device
         assert criterion.reduction in {"mean", "sum"}, criterion.reduction
         self.criterion_mean_reduction = criterion.reduction == "mean"
         self._train_step = None
@@ -97,16 +110,37 @@ class SupervisedEpoch:
         self.epoch = epoch
         return self
 
+    def _mesh(self, network):
+        """The training mesh (None on one card), made once."""
+        if self.mesh is None and self.parallel > 1:
+            if whole_batch(network):
+                raise NotImplementedError(
+                    "data parallelism of a whole-batch network (a "
+                    "composition, or live BatchNorm or Dropout) is not "
+                    "ported (ROADMAP item 7.3)")
+            self.mesh = make_mesh(self.parallel, network.device)
+        return self.mesh
+
     def _optimization_step(self, network, optimizer, batch_images,
                            batch_targets):
         if self._train_step is None:
             self._generator = torch.Generator(
                 device=network.device).manual_seed(0)
+            mesh = self._mesh(network)
             self._train_step = TrainStep(
                 network, self.criterion,
                 device_chain=getattr(self.data_loader.dataset,
                                      "device_chain", None),
-                generator=self._generator)
+                generator=self._generator, mesh=mesh)
+            if mesh is not None \
+                    and self._train_step.param_sharding == "zero":
+                if not hasattr(optimizer, "shard_state"):
+                    # the step leaves ZeRO's gradients unreduced
+                    raise NotImplementedError(
+                        "param_sharding zero with a %s optimizer is not "
+                        "ported (ROADMAP item 7.3)"
+                        % type(optimizer).__name__)
+                optimizer.shard_state(mesh)
         optimizer.zero_grad()
         loss, batch_size = self._train_step.gradients(batch_images,
                                                       batch_targets)
@@ -191,6 +225,12 @@ class SupervisedEpoch:
             return
         network.eval()
         mining_stats = dataset.prepare_epoch(network)
+        mesh = self._mesh(network)
+        if mesh is not None and hasattr(dataset, "nidxs"):
+            # rank 0's picks on every rank
+            picks = mesh.broadcast((dataset.qidxs, dataset.pidxs,
+                                    dataset.nidxs, mining_stats))
+            dataset.qidxs, dataset.pidxs, dataset.nidxs, mining_stats = picks
         watch.lap("prepare_data")
         total = len(self.data_loader)
         if mining_stats:
@@ -203,6 +243,11 @@ class SupervisedEpoch:
         """Mine, then yield each step's ``{"total": loss}``."""
         loader = self.data_loader
         on_device(getattr(loader.dataset, "transform", None), network.device)
+        mesh = self._mesh(network)
+        if mesh is not None:  # rank 0's host RNGs on every rank
+            states = mesh.broadcast((np.random.get_state(), random.getstate()))
+            np.random.set_state(states[0])
+            random.setstate(states[1])
         stopwatch = StopWatch()
         self._mine_epoch_tuples(network, logger, stopwatch)
         size = len(loader)

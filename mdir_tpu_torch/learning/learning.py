@@ -5,11 +5,14 @@ restored from the latest checkpoint under ``<directory>/epochs``, iterated
 as ``Epoch(epoch, train, vals)`` and checkpointed at each epoch's close. The
 checkpoint payload is ``{training, validation, datasets, events,
 resources}`` beside the network files. The event broker writes its blobs
-and report under the checkpoints' ``epochs`` directory.
+and report under the checkpoints' ``epochs`` directory. In a process group
+only rank 0 writes (``parallel/mesh.py::writes_files``); every rank takes
+the session's state, which gathers a sharded optimizer's.
 """
 import copy
 from collections import namedtuple
 
+from ..parallel.mesh import writes_files
 from ..tools.events import initialize_processor
 from ..tools.stats import CodeVersion, ResourceUsage
 from .checkpoints import Checkpoints
@@ -37,7 +40,8 @@ def _check_scenario_shape(params):
 def _open_session(params, data, device):
     """Restore from the latest checkpoint if there is one, else start."""
     checkpoints = Checkpoints(**params["learning"]["checkpoints"])
-    events_root = checkpoints.directory  # JAX's "<directory>/../epochs"
+    # JAX's "<directory>/../epochs"; none but rank 0's writes
+    events_root = checkpoints.directory if writes_files() else None
     saved = checkpoints.load_latest_epoch(
         params["learning"]["training"]["epochs"])
 
@@ -92,11 +96,12 @@ class TrainValLearning:
         """Close the epoch's events, then checkpoint everything."""
         self.events.close_epoch()
         decisive = self.validation.decisive_criterion
-        self.checkpoints.save_epoch(
-            self.network.state_dict(), self._session_payload(),
-            self.training.epoch,
-            self.events.metadata.is_last_best(decisive),
-            not self.training.remains_epochs)
+        payload = self._session_payload()  # a collective under ZeRO
+        if writes_files():
+            self.checkpoints.save_epoch(
+                self.network.state_dict(), payload, self.training.epoch,
+                self.events.metadata.is_last_best(decisive),
+                not self.training.remains_epochs)
 
     def _session_payload(self):
         """What a resume needs beside the network's weights."""

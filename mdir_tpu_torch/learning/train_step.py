@@ -46,7 +46,20 @@ descriptor net, NCHW images of an image net. Gradients go to the
 parameters of the members that are not frozen (``torch.autograd.grad``),
 so a frozen embedder's weights get none. Dropout draws from the generator
 the caller gives (``generator``); live BatchNorm moves its running
-statistics in the modules. ``param_sharding: zero`` (ROADMAP §1.7) raises.
+statistics in the modules.
+
+**Over several cards** (``mesh``, ``parallel/mesh.py``; JAX
+``train_step.py:106-146, 247-263, 322-337``), on the per-tuple route only:
+each rank takes its contiguous share of the batch's tuples (the tuple count
+must divide by the world size, as the JAX step asserts for its batch), the
+mean reduction's weights count the whole batch's images, and the loss and
+the gradients are summed over the ranks (one all-reduce), so every rank
+holds the whole batch's gradients and the update is the single-card
+update. Under ``param_sharding: zero`` the gradients are left unreduced:
+the ZeRO optimizer (``optim/optimizers.py::Optimizer.shard_state``)
+reduce-scatters them. The whole-batch route over several ranks raises
+(ROADMAP item 7.3): JAX's BatchNorm statistics span the global batch, which
+needs a collective inside the forward pass.
 
 Compute dtype (``ops/dtypes.py``; JAX ``train_step.py:39-100,268-299``): in
 bfloat16 only the trunk runs in bf16, from its float32 master parameters
@@ -60,7 +73,9 @@ whatever the runtime asks. Under ``auto`` the first step, and every
 ``TRAIN_GUARD_REARM``-th after it, also runs in float32: unless the bf16
 gradient is finite, its loss within 5 % and its flattened gradient at
 cosine >= 0.95 of float32's, the float32 result is kept and training stays
-float32.
+float32. On a mesh the two runs' losses and gradients are summed over the
+ranks before they are compared, so every rank judges the whole batch, as
+JAX's guard does, and reaches the same verdict.
 """
 import inspect
 
@@ -153,12 +168,13 @@ def whole_batch(network):
 
 
 def _check_sharding(runtime, param_sharding):
+    """The step's sharding mode: None (plain DP) or ``"zero"``."""
     sharding = runtime.get("param_sharding") if param_sharding == "auto" \
         else param_sharding
-    if sharding not in (None, "dp", "none"):
-        raise NotImplementedError(
-            "param_sharding %r needs the multi-card path (ROADMAP §1.7)"
-            % (sharding,))
+    if sharding not in (None, "dp", "none", "zero"):
+        raise ValueError("unknown param_sharding %r (dp, none or zero)"
+                         % (sharding,))
+    return "zero" if sharding == "zero" else None
 
 
 def _bf16_trainable(network):
@@ -177,15 +193,23 @@ class TrainStep:
 
     ``compute_dtype`` "auto" takes the network runtime's; ``guard_reports``
     lists each guard run's loss gap, gradient cosine and verdict;
-    ``generator`` is the Dropout masks' ``torch.Generator``.
+    ``generator`` is the Dropout masks' ``torch.Generator``; ``mesh`` shares
+    each batch's tuples out over its ranks.
     """
 
     def __init__(self, network, criterion, device_chain=None,
                  compute_dtype="auto", param_sharding="auto",
-                 generator=None):
-        _check_sharding(network.network_params.runtime, param_sharding)
+                 generator=None, mesh=None):
+        self.param_sharding = _check_sharding(network.network_params.runtime,
+                                              param_sharding)
         self.network = network
         self.whole = whole_batch(network)
+        self.mesh = mesh
+        if mesh is not None and mesh.size > 1 and self.whole:
+            raise NotImplementedError(
+                "data parallelism of a whole-batch network (a composition, "
+                "or live BatchNorm or Dropout) is not ported (ROADMAP item "
+                "7.3)")
         self.members = [network.networks[name] for name in network.sequence] \
             if hasattr(network, "sequence") else [network]
         for member in self.members:
@@ -251,8 +275,9 @@ class TrainStep:
         out = out.to(torch.float32)
         return self.criterion(out.T, torch.from_numpy(targets).to(device))
 
-    def _accumulate(self, buckets, compute_dtype):
-        elements = sum(valid.shape[0] for _, valid, _ in buckets)
+    def _accumulate(self, buckets, compute_dtype, elements):
+        """Loss and ``.grad`` of the tuples' buckets; a mean-reduced loss
+        weighted by each tuple's share of ``elements`` images."""
         total = 0.0
         for batch, valid, targets in buckets:
             loss = self.tuple_loss(batch, valid, targets, compute_dtype)
@@ -297,22 +322,50 @@ class TrainStep:
     def gradients(self, batch_images, batch_targets):
         """Accumulate the batch's gradients into the parameters' ``.grad``;
         return the batch's loss (a 0-d tensor) and its number of items
-        (tuples, or images)."""
+        (tuples, or images). On a mesh the whole ``.grad`` is summed over
+        the ranks, so it must hold this batch's alone (``zero_grad``
+        first)."""
         if self.whole or not is_tuple_batch(batch_images):
+            if self.mesh is not None and self.mesh.size > 1:
+                raise NotImplementedError(
+                    "data parallelism of a whole-batch step is not ported "
+                    "(ROADMAP item 7.3)")
             bucket, = prepare_batch(batch_images, batch_targets, whole=True)
             self.steps += 1
             return self._whole_gradients(bucket), len(batch_images)
         buckets = prepare_batch(batch_images, batch_targets)
+        elements = sum(valid.shape[0] for _, valid, _ in buckets)
+        mine = buckets
+        if self.mesh is not None:  # JAX asserts the same
+            if len(buckets) % self.mesh.size:
+                raise ValueError("a batch of %d tuples does not divide "
+                                 "over %d ranks" % (len(buckets),
+                                                    self.mesh.size))
+            mine = buckets[self.mesh.rows(len(buckets))]
         self.steps += 1
         if self.compute_dtype is not None and self.rearm_every \
                 and self.steps > 1 \
                 and (self.steps - 1) % self.rearm_every == 0:
             self.guard_pending = True
         if not self.guard_pending:
-            return self._accumulate(buckets, self.compute_dtype), len(buckets)
-        return self._run_dtype_guard(buckets), len(buckets)
+            loss = self._accumulate(mine, self.compute_dtype, elements)
+        else:
+            loss = self._run_dtype_guard(mine, elements)
+        return self._reduce(loss), len(buckets)
 
-    def _run_dtype_guard(self, buckets):
+    def _reduce(self, loss):
+        """The loss, and the gradients unless ZeRO reduce-scatters them,
+        summed over the mesh's ranks."""
+        if self.mesh is None or not self.mesh.collective:
+            return loss
+        grads = [p.grad for p in self.network.model.parameters()
+                 if p.grad is not None]
+        loss = loss.reshape(1)
+        self.mesh.all_reduce([loss] + ([] if self.param_sharding == "zero"
+                                       else grads))
+        return loss[0]
+
+    def _run_dtype_guard(self, buckets, elements):
         """The batch in the fast dtype and in float32, each into its own
         gradients (the ones already accumulated set aside and added back):
         the fast result is kept when its gradient is finite, its loss within
@@ -327,7 +380,7 @@ class TrainStep:
         for dtype in (self.compute_dtype, None):
             for p in params:
                 p.grad = None
-            loss = self._accumulate(buckets, dtype)
+            loss = self._accumulate(buckets, dtype, elements)
             runs.append((loss, [p.grad for p in params]))
         (loss_f, grads_f), (loss_e, grads_e) = runs
 
@@ -337,8 +390,12 @@ class TrainStep:
                               for p, g in zip(params, grads)])
 
         flat_f, flat_e = flat(grads_f), flat(grads_e)
-        gap = abs(float(loss_f) - float(loss_e)) \
-            / max(abs(float(loss_e)), 1e-6)
+        sum_f, sum_e = (loss.detach().reshape(1).to(torch.float32)
+                        for loss in (loss_f, loss_e))
+        if self.mesh is not None:  # the whole batch's, alike on every rank
+            self.mesh.all_reduce([sum_f, sum_e, flat_f, flat_e])
+        gap = abs(float(sum_f) - float(sum_e)) \
+            / max(abs(float(sum_e)), 1e-6)
         cosine = float(dtype_policy.row_cosines(flat_f, flat_e))
         finite = bool(torch.isfinite(flat_f).all())
         ok = finite and gap <= dtype_policy.TRAIN_GUARD_LOSS_RTOL \

@@ -5,6 +5,8 @@ The mAP follows ``mdir_tpu/ops/ranking.py``: trapezoidal AP over positive
 positions with junk entries removed by rank shifting, queries without
 positives left out of the mean, the revisited E/M/H regrouping for
 roxford5k/rparis6k, and precision@k, written as cumulative sums in numpy.
+Over several cards the database's columns are split between the ranks
+(``rank_database_sharded``).
 """
 import numpy as np
 import torch
@@ -18,6 +20,24 @@ def rank_database(vecs, qvecs):
     """
     scores = vecs.T @ qvecs
     return torch.argsort(-scores, dim=0, stable=True)
+
+
+def rank_database_sharded(vecs, qvecs, mesh):
+    """``rank_database`` with the database split over a mesh's ranks (JAX
+    ``rank_database_sharded``): the (D, N) columns padded with NaN columns
+    to a multiple of the world size, each rank scoring its contiguous
+    share (NaN scores as -inf, so the padding ranks last), the scores
+    gathered on every rank, one stable sort there, the padding's rows
+    dropped. Every rank returns the (N, Q) ranks."""
+    n = vecs.shape[1]
+    pad = -n % mesh.size
+    if pad:
+        vecs = torch.cat([vecs, vecs.new_full((vecs.shape[0], pad),
+                                              float("nan"))], dim=1)
+    scores = vecs[:, mesh.rows(n + pad)].T @ qvecs
+    scores = torch.where(torch.isnan(scores), float("-inf"), scores)
+    scores = mesh.all_gather_rows(scores)
+    return torch.argsort(-scores, dim=0, stable=True)[:n]
 
 
 def _ap_from_masks(is_pos, is_junk, nres):

@@ -13,8 +13,21 @@ member, a member whose optimizer is ``null`` frozen; with
 ``alternate_iteration`` N the members step in turn (in ``order``), N steps
 each, else all at once. Its state keeps each member's optimizer state and
 the ``alternation`` counters.
+
+Under ``param_sharding: zero`` over several cards (``shard_state``, JAX
+``optimizers.py:88-107``) each rank keeps and updates only its slice of
+each parameter's moments, along the dimension JAX's ``zero_shardings``
+picks (``parallel/mesh.py::zero_dim``): the step reduce-scatters each
+gradient along it, the torch optimizer steps the slices (the same coupled
+weight decay, eps and per-group learning rates), and the new slices are
+all-gathered, so every rank holds the whole parameters. A parameter with no
+divisible dimension gets its gradient all-reduced and is updated whole on
+every rank. ``state_dict`` gathers the moments: it is a single-card state
+dict, and ``load_state_dict`` slices one again, at any world size.
 """
 import torch
+
+from ..parallel.mesh import zero_dim
 
 ALGORITHMS = {
     "sgd": lambda groups, momentum: torch.optim.SGD(
@@ -31,6 +44,8 @@ class Optimizer:
         self.optimizer = optimizer
         self.base_lrs = base_lrs  # {group: base lr}
         self.group_names = group_names  # one per optimizer.param_groups
+        self.mesh = None  # set by shard_state
+        self.zero = []  # (parameter, its split dimension or None, its slice)
 
     @classmethod
     def create(cls, net_parameters, algorithm, lr, weight_decay,
@@ -53,11 +68,79 @@ class Optimizer:
                 names.append(group)
         return cls(ALGORITHMS[algorithm](groups, momentum), base_lrs, names)
 
+    def shard_state(self, mesh):
+        """Keep the moments sharded over ``mesh``'s ranks (ZeRO); the
+        state so far is sliced, and the parameters stay whole."""
+        full = self.optimizer.state_dict()
+        self.mesh = mesh
+        groups = []
+        for group in self.optimizer.param_groups:
+            slices = []
+            for param in group["params"]:
+                dim = zero_dim(tuple(param.shape), mesh.size)
+                piece = param if dim is None else \
+                    param.detach().movedim(dim, 0)[
+                        mesh.rows(param.shape[dim])].movedim(0, dim).clone(
+                            memory_format=torch.contiguous_format)
+                self.zero.append((param, dim, piece))
+                slices.append(piece)
+            groups.append(dict(group, params=slices))
+        self.optimizer = type(self.optimizer)(groups,
+                                              **self.optimizer.defaults)
+        self.optimizer.load_state_dict(self._sliced(full))
+
+    def _state_tensors(self, torch_state):
+        """(index, key, tensor, dim) of every moment of a split parameter,
+        index as in ``torch_state["state"]``."""
+        for index, (_, dim, piece) in enumerate(self.zero):
+            if dim is None:
+                continue
+            for key, value in torch_state["state"].get(index, {}).items():
+                if torch.is_tensor(value) and value.dim() == piece.dim():
+                    yield index, key, value, dim
+
+    def _sliced(self, torch_state):
+        """A single-card torch state dict with this rank's moment slices."""
+        state = {i: dict(entry) for i, entry in torch_state["state"].items()}
+        for index, key, value, dim in self._state_tensors(torch_state):
+            state[index][key] = value.movedim(dim, 0)[self.mesh.rows(
+                value.shape[dim])].movedim(0, dim).clone(
+                    memory_format=torch.contiguous_format)
+        return {"state": state, "param_groups": torch_state["param_groups"]}
+
+    def _gathered(self, torch_state):
+        """This rank's torch state dict with every moment whole."""
+        state = {i: dict(entry) for i, entry in torch_state["state"].items()}
+        for index, key, value, dim in self._state_tensors(torch_state):
+            state[index][key] = self.mesh.all_gather_rows(
+                value.movedim(dim, 0)).movedim(0, dim).contiguous()
+        return {"state": state, "param_groups": torch_state["param_groups"]}
+
     def step(self):
+        if self.mesh is None:
+            self.optimizer.step()
+            return
+        whole = []
+        for param, dim, piece in self.zero:
+            if param.grad is None:
+                continue
+            if dim is None:
+                whole.append(param.grad)
+            else:
+                piece.grad = self.mesh.reduce_scatter_rows(
+                    param.grad.movedim(dim, 0)).movedim(0, dim).contiguous()
+        self.mesh.all_reduce(whole)
         self.optimizer.step()
+        with torch.no_grad():
+            for param, dim, piece in self.zero:
+                if dim is not None and piece.grad is not None:
+                    param.copy_(self.mesh.all_gather_rows(
+                        piece.movedim(dim, 0)).movedim(0, dim))
 
     def zero_grad(self):
         self.optimizer.zero_grad(set_to_none=True)
+        for param, _, _ in self.zero:
+            param.grad = None
 
     def set_lr_factor(self, factor):
         """Every group's lr to its base lr times ``factor`` (scheduler hook)."""
@@ -70,11 +153,18 @@ class Optimizer:
                 in zip(self.group_names, self.optimizer.param_groups)}
 
     def state_dict(self):
-        return {"torch_state": self.optimizer.state_dict(),
-                "base_lrs": dict(self.base_lrs)}
+        """The single-card state dict (under ZeRO a collective: every rank
+        calls it)."""
+        torch_state = self.optimizer.state_dict()
+        if self.mesh is not None:
+            torch_state = self._gathered(torch_state)
+        return {"torch_state": torch_state, "base_lrs": dict(self.base_lrs)}
 
     def load_state_dict(self, state_dict):
-        self.optimizer.load_state_dict(state_dict["torch_state"])
+        torch_state = state_dict["torch_state"]
+        if self.mesh is not None:
+            torch_state = self._sliced(torch_state)
+        self.optimizer.load_state_dict(torch_state)
 
 
 def init_sgd(net_parameters, lr, momentum, weight_decay):

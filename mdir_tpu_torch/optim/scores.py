@@ -6,6 +6,13 @@
 and query descriptors through the network's batched path, ranks with one
 matrix product on the network's device, scores with the junk-aware mAP
 protocol and logs per-query AP and the averages.
+
+With ``parallel: {data: N}`` (JAX ``scores.py:30-36, 78-106``) the database
+and query images are extracted with each chunk sharded over the N ranks
+of the process group (``parallel/mesh.py``) and the database's columns are
+ranked sharded (``rank_database_sharded``); every rank returns the same
+scores. A scenario built in Python may give a ``loader`` (a path to a PIL
+image or an (H, W, 3) uint8 array), as the datasets take.
 """
 import os
 
@@ -15,8 +22,10 @@ import torch
 from ..data.readers import initialize_file_reader
 from ..data.testdata import configdataset
 from ..data.transforms import initialize_transforms
-from ..ops.ranking import compute_map_and_print, rank_database
+from ..ops.ranking import (compute_map_and_print, rank_database,
+                           rank_database_sharded)
 from ..parallel.extract import extract_vectors_network
+from ..parallel.mesh import make_mesh
 from ..tools.utils import get_data_root, path_join
 
 
@@ -27,8 +36,11 @@ class CirDatasetAp:
         self.dataset = params.pop("dataset")
         self.transforms = initialize_transforms(params.pop("transforms"),
                                                 params.pop("mean_std"))
-        if params.pop("parallel", None) is not None:
-            raise NotImplementedError("multi-card eval is not ported yet")
+        self.parallel = params.pop("parallel", None)
+        if self.parallel is not None and set(self.parallel) != {"data"}:
+            raise ValueError("parallel takes data only, not %s"
+                             % sorted(self.parallel))
+        self.loader = params.pop("loader", None)
 
         if isinstance(self.dataset, dict):
             assert self.dataset.keys() == {"name", "queries", "db", "imgdir"}
@@ -61,20 +73,25 @@ class CirDatasetAp:
         assert not params, params.keys()
 
     def __call__(self, network, logger=None):
+        mesh = None if self.parallel is None \
+            else make_mesh(self.parallel["data"], network.device)
         print(">> {}: database images...".format(self.dataset))
         vecs = extract_vectors_network(network, self.images, self.image_size,
-                                       self.transforms)
+                                       self.transforms, loader=self.loader,
+                                       mesh=mesh)
         print(">> {}: query images...".format(self.dataset))
         if self.images == self.qimages and set(self.bbxs) == {None}:
             qvecs = vecs
         else:
             qvecs = extract_vectors_network(network, self.qimages,
                                             self.image_size, self.transforms,
-                                            bbxs=self.bbxs)
+                                            bbxs=self.bbxs, loader=self.loader,
+                                            mesh=mesh)
         print(">> {}: Evaluating...".format(self.dataset))
-        ranks = rank_database(
-            torch.from_numpy(np.ascontiguousarray(vecs)).to(network.device),
-            torch.from_numpy(np.ascontiguousarray(qvecs)).to(network.device))
+        vecs, qvecs = (torch.from_numpy(np.ascontiguousarray(v)).to(
+            network.device) for v in (vecs, qvecs))
+        ranks = rank_database(vecs, qvecs) if mesh is None \
+            else rank_database_sharded(vecs, qvecs, mesh)
         averages, scores = compute_map_and_print(self.dataset,
                                                  ranks.cpu().numpy(), self.gnd)
         if logger is not None:

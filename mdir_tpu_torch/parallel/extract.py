@@ -42,6 +42,17 @@ first chunk also runs in float32: below the cosine bar its float32 result
 is what the extractor keeps, and the run (and every later one of that
 model, per process) computes float32. The exact per-image path is float32.
 
+Over several cards (``mesh``, ``parallel/mesh.py``; JAX ``mesh=``) the
+batched paths shard each chunk: ``max_batch`` is rounded up to the world
+size, a chunk is padded to a multiple of it (padding rows carry (1, 1)
+extents and are never read), rank r runs its contiguous share of the rows
+through the same forward and kernels, and the chunk's descriptors are
+gathered on every rank, so each returns the whole (D, N) matrix. Under
+``auto`` the first chunk's fast and float32 rows are gathered before the
+guard compares them, so every rank judges all the chunk's rows, as JAX's
+guard does, and reaches the same verdict. The exact per-image path runs
+whole on every rank.
+
 Everything runs synchronously on the calling thread: chunks are copied to the
 device and launched in order on the current stream, and ``finish`` copies
 the descriptors back. Nothing here starts a thread or a process.
@@ -178,18 +189,23 @@ class StreamingExtractor:
 
     An RMAC or Rpool net gets each chunk's region boxes per scale
     (``region_boxes``), computed here from the images' scaled sizes.
+
+    With a ``mesh`` each chunk is sharded over its ranks (the module's
+    docstring); every rank must add the same images.
     """
 
     def __init__(self, model, scales=(1,), msp=1.0, whiten=None,
                  normalize_mean_std=None, bucket_multiple=BUCKET_MULTIPLE,
                  max_batch=MAX_BATCH, device_chain=None, compute_dtype=None,
-                 dtype_guard=False):
+                 dtype_guard=False, mesh=None):
         self.model = model
         self.device = model.device
         self.scales = list(scales)
         self.msp = msp
         self.bucket_multiple = bucket_multiple
-        self.max_batch = max_batch
+        self.mesh = mesh
+        self.ranks = 1 if mesh is None else mesh.size
+        self.max_batch = _round_up(max_batch, self.ranks)
         self.P = self.m = None
         if whiten is not None:
             self.P = whiten.P[:whiten.dimensions, :].to(self.device)
@@ -297,9 +313,14 @@ class StreamingExtractor:
             bsz = self.max_batch
             self.saw_full.add(bucket)
         else:
-            bsz = len(items)
-        shapes = [arr.shape[:2] for _, arr in items]
+            bsz = _round_up(len(items), self.ranks)
+        indices = [i for i, _ in items]
         channels = items[0][1].shape[-1]
+        if self.mesh is not None:  # this rank's rows, the rest padding
+            rows = self.mesh.rows(bsz)
+            items = items[rows]
+            bsz = rows.stop - rows.start
+        shapes = [arr.shape[:2] for _, arr in items]
         valid = np.ones((bsz, 2), np.int32)
         batch = np.zeros((bsz,) + bucket + (channels,), self.host_dtype)
         for bi, (_, arr) in enumerate(items):
@@ -324,18 +345,23 @@ class StreamingExtractor:
         vecs = fused_forward(self.fast_model, self.scales, *args,
                              compute_dtype=self.compute_dtype)
         if self.guard_pending:
-            vecs = self._run_dtype_guard(vecs, args, len(items))
+            vecs = self._run_dtype_guard(vecs, args, len(indices))
+        elif self.mesh is not None:
+            vecs = self.mesh.all_gather_rows(vecs)
         self.chunks += 1
-        self.results.append(([i for i, _ in items], vecs))
+        self.results.append((indices, vecs))
 
     def _run_dtype_guard(self, fast, args, n):
         """The first chunk's float32 cross-check (JAX ``_run_dtype_guard``):
         the same chunk through the float32 model; if the fast rows drift
         below the cosine bar, the float32 chunk is returned and this run
         (and, through the cached verdict, every later one of the model)
-        computes float32."""
+        computes float32. On a mesh both are the gathered chunk, whose
+        first ``n`` rows are real."""
         self.guard_pending = False
         exact = fused_forward(self.model, self.scales, *args)
+        if self.mesh is not None:
+            fast, exact = (self.mesh.all_gather_rows(v) for v in (fast, exact))
         ok = dtype_policy.cosine_rows_ok(fast[:n], exact[:n])
         self.guard_report = _guard_report(fast[:n], exact[:n], ok,
                                           "extraction")
@@ -393,7 +419,7 @@ def extract_vectors_batched(model, arrays, scales=(1,), msp=1.0, whiten=None,
     return extractor.finish(n)
 
 
-def network_extractor(network, transform, batch_size=MAX_BATCH):
+def network_extractor(network, transform, batch_size=MAX_BATCH, mesh=None):
     """A StreamingExtractor for ``network``'s eval wrappers and ``transform``.
 
     With a plain pil2np|totensor|normalize transform of 3 channels the
@@ -403,7 +429,7 @@ def network_extractor(network, transform, batch_size=MAX_BATCH):
     the float32 arrays that ``transform`` makes on the host, its device
     transforms pointed at the model's device (JAX ``extract.py:945-977``).
     The compute dtype and its guard come from the network's runtime
-    (``ops.dtypes.resolve_compute_dtype``).
+    (``ops.dtypes.resolve_compute_dtype``); ``mesh`` shards its chunks.
     """
     analyzed = _analyze_wrappers(network)
     if analyzed is None:
@@ -426,7 +452,7 @@ def network_extractor(network, transform, batch_size=MAX_BATCH):
         msp=CirMultiscaleAggregation.msp(model, len(scales)), whiten=whiten,
         max_batch=batch_size, normalize_mean_std=mean_std,
         device_chain=chain, compute_dtype=compute_dtype,
-        dtype_guard=dtype_guard)
+        dtype_guard=dtype_guard, mesh=mesh)
 
 
 def _plain_ingress(transform):
@@ -527,10 +553,13 @@ class ComposedExtractor:
     runtime; in bfloat16 both models run from bf16 copies, and under
     ``auto`` the first chunk's (S, B, D) rows are held against float32
     under the guard kind ``composed`` (JAX ``extract.py:1240-1268``).
+    With a ``mesh`` each chunk is sharded over its ranks (JAX
+    ``extract.py:1272-1283``).
     """
 
     def __init__(self, network, normalize_mean_std=None,
-                 bucket_multiple=BUCKET_MULTIPLE, max_batch=MAX_BATCH):
+                 bucket_multiple=BUCKET_MULTIPLE, max_batch=MAX_BATCH,
+                 mesh=None):
         if not _composable(network):
             raise ValueError("%s has no composed batched extraction"
                              % type(network).__name__)
@@ -557,7 +586,9 @@ class ComposedExtractor:
         self.device = tail.model.device
         self.dim = tail.meta["out_channels"]
         self.bucket_multiple = bucket_multiple
-        self.max_batch = max_batch
+        self.mesh = mesh
+        self.ranks = 1 if mesh is None else mesh.size
+        self.max_batch = _round_up(max_batch, self.ranks)
         self.mean = self.std = None
         self.host_dtype = np.float32
         if normalize_mean_std is not None:
@@ -590,9 +621,15 @@ class ComposedExtractor:
     def _submit(self, key):
         items = self.buffers.pop(key)
         raw_bucket, pads = key
-        bsz = len(items)
-        batch = np.zeros((bsz,) + raw_bucket + (items[0][1].shape[-1],),
-                         self.host_dtype)
+        indices = [i for i, _ in items]
+        channels = items[0][1].shape[-1]
+        # padded to the world size; padding rows carry (1, 1) extents
+        bsz = _round_up(len(items), self.ranks)
+        if self.mesh is not None:  # this rank's rows
+            rows = self.mesh.rows(bsz)
+            items = items[rows]
+            bsz = rows.stop - rows.start
+        batch = np.zeros((bsz,) + raw_bucket + (channels,), self.host_dtype)
         for bi, (_, arr) in enumerate(items):
             batch[bi, :arr.shape[0], :arr.shape[1]] = arr
         packs = []
@@ -615,16 +652,26 @@ class ComposedExtractor:
             # compare along their last axis
             self.guard_pending = False
             exact = composed_forward(*self.models, *args)
-            ok = dtype_policy.cosine_rows_ok(vecs, exact)
-            self.guard_report = _guard_report(vecs, exact, ok, "composed")
+            if self.mesh is not None:  # the whole chunk on every rank
+                vecs, exact = (self._gathered(v) for v in (vecs, exact))
+            n = len(indices)  # the real rows
+            ok = dtype_policy.cosine_rows_ok(vecs[:, :n], exact[:, :n])
+            self.guard_report = _guard_report(vecs[:, :n], exact[:, :n], ok,
+                                              "composed")
             dtype_policy.record_guard_decision(self.models[1], ok,
                                                "composed")
             if not ok:
                 self.compute_dtype = None
                 self.translate, self.embed = self.models
                 vecs = exact
+        elif self.mesh is not None:
+            vecs = self._gathered(vecs)
         self.chunks += 1
-        self.results.append(([i for i, _ in items], vecs))
+        self.results.append((indices, vecs))
+
+    def _gathered(self, vecs):
+        """Every rank's (S, rows, D) descriptors, stacked along the rows."""
+        return self.mesh.all_gather_rows(vecs.transpose(0, 1)).transpose(0, 1)
 
     def finish(self, n):
         """Run the partial chunks; return the (D, N) descriptors (numpy):
@@ -686,12 +733,12 @@ def _decoded(images, image_size, bbxs, transform, uint8, loader=None):
             for i in range(len(dataset)))
 
 
-def _composed_extractor(network, transform, max_batch=MAX_BATCH):
+def _composed_extractor(network, transform, max_batch=MAX_BATCH, mesh=None):
     """A ComposedExtractor for a 2-net composition, and whether it takes
     uint8 pixels (else the host transform's output)."""
     mean_std = _plain_ingress(transform)
     extractor = ComposedExtractor(network, normalize_mean_std=mean_std,
-                                  max_batch=max_batch)
+                                  max_batch=max_batch, mesh=mesh)
     if mean_std is None:
         on_device(transform, extractor.device)
     return extractor, mean_std is not None
@@ -718,10 +765,12 @@ def _per_image_vectors(network, transform, arrays, n):
 
 
 def extract_vectors_composed(network, images, image_size, transform,
-                             bbxs=None, max_batch=MAX_BATCH, loader=None):
+                             bbxs=None, max_batch=MAX_BATCH, loader=None,
+                             mesh=None):
     """(D, N) descriptors of images (paths, or uint8 HWC arrays) through a
-    2-net composition's batched path."""
-    extractor, uint8 = _composed_extractor(network, transform, max_batch)
+    2-net composition's batched path, its chunks sharded over ``mesh``."""
+    extractor, uint8 = _composed_extractor(network, transform, max_batch,
+                                           mesh)
     return _extracted(extractor, _decoded(images, image_size, bbxs,
                                           transform, uint8, loader),
                       len(images))
@@ -736,7 +785,8 @@ def extract_vectors_per_image(network, images, image_size, transform,
         images, image_size, bbxs, transform, False, loader), len(images))
 
 
-def descriptors_of(network, decoded, n, transform, batch_size=MAX_BATCH):
+def descriptors_of(network, decoded, n, transform, batch_size=MAX_BATCH,
+                   mesh=None):
     """(D, n) descriptors of n images through ``network`` in eval mode.
 
     A 2-net composition takes the composed batched path, a retrieval net
@@ -744,31 +794,34 @@ def descriptors_of(network, decoded, n, transform, batch_size=MAX_BATCH):
     other network the exact per-image path (JAX ``extract.py``'s
     dispatch). ``decoded(uint8)`` yields the images in order: as (H, W, 3)
     uint8 pixels when ``uint8`` is true, else through ``transform``.
+    ``mesh`` shards the batched paths' chunks; the per-image path runs
+    whole on every rank.
     """
     network.eval()
     if _composable(network):
         extractor, uint8 = _composed_extractor(network, transform,
-                                               batch_size)
+                                               batch_size, mesh)
     elif hasattr(network, "sequence") or _analyze_wrappers(network) is None \
             or "pooling" not in network.model.meta:
         return _per_image_vectors(network, transform, decoded(False), n)
     else:
-        extractor = network_extractor(network, transform, batch_size)
+        extractor = network_extractor(network, transform, batch_size, mesh)
         uint8 = extractor.host_dtype == np.uint8
     return _extracted(extractor, decoded(uint8), n)
 
 
 def extract_vectors_network(network, images, image_size, transform,
-                            bbxs=None, batch_size=MAX_BATCH, loader=None):
+                            bbxs=None, batch_size=MAX_BATCH, loader=None,
+                            mesh=None):
     """(D, N) descriptors of image files (or uint8 HWC arrays) through
-    ``network`` by ``descriptors_of``'s dispatch. Files are decoded here by
-    ``loader`` (by default PIL), cropped to their bounding box and shrunk
-    to ``image_size`` on their longer side.
+    ``network`` by ``descriptors_of``'s dispatch, sharded over ``mesh``.
+    Files are decoded here by ``loader`` (by default PIL), cropped to their
+    bounding box and shrunk to ``image_size`` on their longer side.
     """
     return descriptors_of(
         network, lambda uint8: _decoded(images, image_size, bbxs, transform,
                                         uint8, loader),
-        len(images), transform, batch_size)
+        len(images), transform, batch_size, mesh)
 
 
 @torch.no_grad()

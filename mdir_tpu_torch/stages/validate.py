@@ -1,12 +1,14 @@
 """validate stage: load a frozen network, run its validations, return the
 metrics -- ``mdir_tpu/stages/validate.py`` on the port. The metric dict
 ``{"eval": {key: value}}`` has the JAX package's keys, e.g.
-``roxford5k/validation/score:ap_medium_avg.4``.
+``roxford5k/validation/score:ap_medium_avg.4``. In a process group (a
+score's ``parallel: {data: N}``) every rank returns rank 0's metrics.
 """
 import numpy as np
 
 from ..learning import load_network
 from ..learning.validation import initialize_validation
+from ..parallel.mesh import from_rank0
 from ..tools.events import initialize_processor
 
 
@@ -34,5 +36,5 @@ def validate(params, data, device="cuda"):
 
         valtask.validate(network, logger)
     events.close_epoch()
-    return ({"eval": {key: values[0] for key, values
-                      in events.metadata.metadata().items()}},)
+    return (from_rank0({"eval": {key: values[0] for key, values
+                                 in events.metadata.metadata().items()}}),)

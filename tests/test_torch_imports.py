@@ -2,8 +2,8 @@
 
 The card's machine has torch, numpy and scipy but no JAX and no PIL, cv2,
 yaml, msgpack, tensorboardX or matplotlib. A subprocess with those modules
-blocked imports every module of ``mdir_tpu_torch`` and ``chip_smoke``
-itself, runs the lab CLAHE chain, trains (and resumes) a small net on
+blocked imports every module of ``mdir_tpu_torch``, ``chip_smoke`` and
+``cards_check`` (the parallel mesh and the dry run among them), runs the lab CLAHE chain, trains (and resumes) a small net on
 in-memory images (its image samples written without PIL), trains a U-Net
 translator on in-memory image pairs through the six augmentations with loss
 validation, and then jointly with an embedder, and runs a U-Net
@@ -31,6 +31,7 @@ for module in pkgutil.walk_packages(mdir_tpu_torch.__path__,
                                     "mdir_tpu_torch."):
     importlib.import_module(module.name)
 import chip_smoke
+import cards_check
 trained = {"mdir_tpu_torch.stages.train", "mdir_tpu_torch.learning.learning",
            "mdir_tpu_torch.learning.training",
            "mdir_tpu_torch.learning.epoch_iteration",
@@ -50,6 +51,8 @@ trained = {"mdir_tpu_torch.stages.train", "mdir_tpu_torch.learning.learning",
            "mdir_tpu_torch.tools.htmlreport", "mdir_tpu_torch.tools.plots",
            "mdir_tpu_torch.tools.sysstats", "mdir_tpu_torch.tools.warmup"}
 assert trained <= set(sys.modules), trained - set(sys.modules)
+parallel = {"mdir_tpu_torch.parallel.mesh", "mdir_tpu_torch.dryrun"}
+assert parallel <= set(sys.modules), parallel - set(sys.modules)
 loaded = sorted(name for name in sys.modules
                 if name.split(".")[0] in %r and sys.modules[name] is not None)
 assert not loaded, loaded
@@ -69,6 +72,41 @@ def test_port_imports_without_jax_pil_yaml_msgpack():
     result = _run(["-c", IMPORT_ALL], ROOT)
     assert result.returncode == 0, result.stderr[-3000:]
     assert int(result.stdout.split()[-1]) >= 38, result.stdout
+
+
+# the environment variables the port reads: the data root (the JAX
+# package's, and cirtorch's), the CUDA toolkit's home and torchrun's local
+# rank; none other of the port's own
+ENVIRONMENT = {"MDIR_TPU_ROOT", "CIRTORCH_ROOT", "CUDA_HOME", "LOCAL_RANK"}
+READERS = {"tools/utils.py", "_build.py", "parallel/mesh.py"}
+
+
+def test_port_reads_no_environment_variable_of_its_own():
+    """Only three modules read the environment, and the variable names
+    that appear in the port are ENVIRONMENT's (no ``MDIR_*`` switch but
+    the data root)."""
+    import ast
+    import re
+
+    package = os.path.join(ROOT, "mdir_tpu_torch")
+    names, readers = set(), set()
+    for base, _, files in os.walk(package):
+        for name in files:
+            if not name.endswith(".py"):
+                continue
+            path = os.path.join(base, name)
+            with open(path) as handle:
+                tree = ast.parse(handle.read())
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Attribute) \
+                        and node.attr in ("environ", "getenv", "putenv"):
+                    readers.add(os.path.relpath(path, package))
+                if isinstance(node, ast.Constant) \
+                        and isinstance(node.value, str) and re.fullmatch(
+                            r"[A-Z][A-Z0-9]*(_[A-Z0-9]+)+", node.value):
+                    names.add(node.value)
+    assert readers <= READERS, readers - READERS
+    assert names == ENVIRONMENT, names ^ ENVIRONMENT
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -92,6 +130,14 @@ def test_kernel_times_fails_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the script runs there")
     result = _run(["kernel_times.py"], ROOT)
+    assert result.returncode != 0
+    assert "no CUDA device" in result.stderr
+
+
+def test_cards_check_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the script runs there")
+    result = _run(["cards_check.py"], ROOT)
     assert result.returncode != 0
     assert "no CUDA device" in result.stderr
 

@@ -300,16 +300,22 @@ def test_prepare_batch_pads_each_tuple():
 
 
 @pytest.mark.parametrize("runtime", [{"compute_dtype": "float8"},
-                                     {"param_sharding": "zero"}])
+                                     {"param_sharding": "fsdp"}])
 def test_unported_runtime_raises(runtime):
-    """A compute dtype neither package runs, and ZeRO sharding (bfloat16
-    and float16 are ported: ``tests/test_torch_dtypes.py``)."""
+    """A compute dtype neither package runs, and a parameter sharding
+    neither package has (bfloat16 and float16 are ported:
+    ``tests/test_torch_dtypes.py``; ZeRO: ``tests/test_torch_parallel.py``;
+    the JAX step asserts on any other sharding)."""
     port_net = port_network()
     port_net.network_params.runtime.update(runtime)
-    error, match = (ValueError, "unknown compute_dtype") \
-        if "compute_dtype" in runtime else (NotImplementedError, "ROADMAP")
-    with pytest.raises(error, match=match):
+    match = "unknown compute_dtype" if "compute_dtype" in runtime \
+        else "unknown param_sharding"
+    with pytest.raises(ValueError, match=match):
         TrainStep(port_net, initialize_criterion(CRITERION))
+    if "param_sharding" in runtime:  # ZeRO is taken
+        port_net.network_params.runtime["param_sharding"] = "zero"
+        assert TrainStep(port_net, initialize_criterion(CRITERION)) \
+            .param_sharding == "zero"
 
 
 @pytest.mark.parametrize("tensor", [

@@ -17,10 +17,23 @@ chain, random weights from its seed, scales 1, 2^-1/2, 1/2, image size
     images), single-card on rank 0, data-parallel and ZeRO on the N cards,
     cuDNN deterministic: the loss gap, the largest parameter difference
     and s/step of each;
+  * takes one step of phase 15's joint N/D net (the P2pUNet translator at
+    nested 7, live BatchNorm, then the frozen VGG16-GeM; random weights
+    from its seed; ``chip_smoke.joint_step``) on JOINT_TUPLES tuples of 7
+    square 512 px crops of those images (28 images: on 4 cards 7 a card,
+    so tuples are cut across cards), single-card on rank 0, data-parallel
+    and ZeRO on the N cards, cuDNN deterministic, sgd with momentum on the
+    translator through the optimizer alternation (JOINT_SGD). Gate: the
+    loss, the translator's parameters and its BatchNorm running
+    statistics within JOINT_RTOL relative of the single-card step (the
+    largest difference over the largest value of the translator's
+    parameters, of its statistics); the step's own largest update on the
+    same scale beside them, and s/step of each;
   * runs ``dryrun_multicard(N, "cuda")`` in the group.
 
 Rank 0 prints one line per reading, one JSON line of the readings and the
-card's name and power limit. Needs N >= 1 cards; fails without one.
+card's name and power limit. Needs N >= 1 cards; fails without one, or
+when a gate fails.
 """
 import argparse
 import json
@@ -33,13 +46,37 @@ import numpy as np
 import torch
 
 TUPLES_PER_CARD = 2  # the steps' batch: this many tuples a card
+JOINT_TUPLES = 4  # the joint step's batch: 28 images
+JOINT_RTOL = 1e-6  # N cards against one: loss, translator, statistics
+# the joint step's optimizer: sgd, whose update is linear in the gradient,
+# so that the gradients' summation order on N cards moves the parameters
+# by lr times its rounding, while a wrong scale of the summed gradient
+# moves them by about the update (1.0e-4-2.4e-4 of the largest weight at
+# lr 1e-4 on a cut net at 2 CPU ranks, where the rounding moved them
+# 3.6e-9-3.9e-8). Adam's first step, lr * g / (|g| + 1e-8), turns the
+# rounding of a gradient within 1e-8 of 0 (behind the frozen random
+# embedder) into a whole step of lr. A tensor that starts at 0 (a
+# BatchNorm bias) holds only its update, so the gaps are measured against
+# the largest value of the group
+JOINT_SGD = {"composition": {"type": "alternation",
+                             "alternate_iteration": None, "order": None},
+             "translate": {"algorithm": "sgd", "lr": 1e-4, "momentum": 0.9,
+                           "weight_decay": 0},
+             "embed": None}
+
+
+def relative_gap(ours, ref):
+    """The largest |ours - ref| over the tensors of two dicts, over the
+    largest |ref| of them."""
+    gap = max(float((ours[k].double() - v.double()).abs().max())
+              for k, v in ref.items())
+    return gap / max(float(v.abs().max()) for v in ref.values())
 
 
 def _tuples(cs, n):
     """n (query, positive, 5 negatives) tuples of phase 9's images, each
     image of another cluster than the others of its tuple."""
-    cs.make_train_images(np.random.RandomState(cs.SEED))
-    names = sorted(cs.TRAIN_IMAGES)
+    names = sorted(cs.train_images())
     clusters = len(names) // 2
     tuples = []
     for k in range(n):
@@ -48,6 +85,59 @@ def _tuples(cs, n):
         tuples.append([cs.TRAIN_IMAGES[name] for name in picks])
     targets = [np.array([-1, 1, 0, 0, 0, 0, 0], np.float32)] * n
     return tuples, targets
+
+
+def _joint_steps(cs, device, mesh, readings, lines):
+    """The joint N/D step single-card on rank 0, DP and ZeRO on the cards
+    (cuDNN deterministic): each against the single card, gated."""
+    from mdir_tpu_torch.data.transforms import initialize_transforms
+    from mdir_tpu_torch.learning.network import initialize_network
+    from mdir_tpu_torch.ops.preprocess import chain_from_transform
+
+    lead = mesh.rank == 0
+    tuples, targets = _tuples(cs, JOINT_TUPLES)
+    batch = ([[np.ascontiguousarray(img[:cs.JOINT_SIDE, :cs.JOINT_SIDE])
+               for img in tpl] for tpl in tuples], targets)
+    params = cs.joint_scenario("", "", 1)["network"]
+    state = initialize_network(params, "cpu").state_dict()
+    network = initialize_network(None, device, state)
+    start = cs.joint_start(network)
+    chain = chain_from_transform(initialize_transforms(
+        cs.PLAIN_TRANSFORM, cs.UNET_DATA["mean_std"]))
+    steps = {}
+    for tag, sharding, on in (("joint_single", None, None),
+                              ("joint_dp", None, mesh),
+                              ("joint_zero", "zero", mesh)):
+        if on is None and not lead:
+            continue
+        cs.joint_step(network, start, batch, chain, JOINT_SGD, sharding,
+                      on)  # warm
+        t = time.perf_counter()
+        steps[tag] = cs.joint_step(network, start, batch, chain, JOINT_SGD,
+                                   sharding, on)
+        readings["%s_s_per_step" % tag] = time.perf_counter() - t
+    if not lead:
+        return
+    ref_loss, ref_params, ref_stats, _ = steps["joint_single"]
+    start_params = {k: start["translate"][k] for k in ref_params}
+    readings["joint_update_rel"] = relative_gap(ref_params, start_params)
+    for tag in ("joint_dp", "joint_zero"):
+        loss, params_, stats, _ = steps[tag]
+        reading = {"loss_rel": abs(loss - ref_loss) / abs(ref_loss),
+                   "translator_rel": relative_gap(params_, ref_params),
+                   "batchnorm_rel": relative_gap(stats, ref_stats)}
+        readings["%s_vs_single" % tag] = reading
+        lines.append(
+            "%s step (%d tuples of 7 at %d px, %d images a card) against "
+            "the single card: loss %.6f vs %.6f, relative gaps %s (the "
+            "update %.2e); %.3f s against %.3f s"
+            % (tag, JOINT_TUPLES, cs.JOINT_SIDE,
+               7 * JOINT_TUPLES // mesh.size, loss, ref_loss, reading,
+               readings["joint_update_rel"],
+               readings["%s_s_per_step" % tag],
+               readings["joint_single_s_per_step"]))
+        cs.check(max(reading.values()) <= JOINT_RTOL,
+                 (tag, "vs single card", reading))
 
 
 def check_rank(*, device):
@@ -155,6 +245,7 @@ def check_rank(*, device):
                    ref_loss, gap, readings["%s_s_per_step" % tag],
                    readings["%s_s_per_step" % against]))
     steps.clear()
+    _joint_steps(cs, device, mesh, readings, lines)
     cudnn.deterministic, cudnn.benchmark = False, False
     t = time.perf_counter()
     dryrun_multicard(n, device.type)  # rank 0 prints its lines

@@ -234,7 +234,16 @@ Phases, one line each with its wall time:
      1e-6 (loss and parameters) of the single-card step, ZeRO within 1e-6
      of DP, and the ZeRO optimizer's gathered state dict equal to the
      single card's (the gap to phase 9's own float32 step is printed:
-     cuDNN's backward is not bit-reproducible there); and
+     cuDNN's backward is not bit-reproducible there); the whole-batch
+     route on phase 15's joint N/D net (the P2pUNet at nested 7 with live
+     BatchNorm, then the VGG16-GeM, frozen again; adam on the translator
+     through the optimizer alternation) and its first batch of
+     5 tuples of 7 square 512 px images: a single-card, a DP and a ZeRO
+     step, float32, cuDNN deterministic, the losses, translator
+     parameters and BatchNorm running statistics 0.0 apart and the
+     alternation's gathered state dict bit-equal to the single card's;
+     then the DP step through the lab CLAHE chain, each chain kernel
+     launched inside it and its bucket's chain bit-equal to plain; and
      ``dryrun_multicard(1, "cuda")``, which shares the group (finite
      losses). It prints launches and the phase's seconds.
 Then one JSON line of kernels (gem_l2n, gem_l2n_bf16 timed at the bf16
@@ -3242,6 +3251,9 @@ def image_train_phase(device, clahe, lab_trilinear, pooling_kernel,
     say("imgtr", "phase 15: %.1f s | %s" % (time.perf_counter() - t_phase,
                                             smi))
     return {"translator": translator_launches, "joint": joint_launches,
+            "joint_step": {"network": network,
+                           "batch": recorder.batches[0],
+                           "mean_std": UNET_DATA["mean_std"]},
             "loss_validation": {tag: n for tag, (_, n) in val_reads.items()},
             "pool": pool}
 
@@ -3538,14 +3550,179 @@ def smoke_step(device, reference, runtime=None, mesh=None):
     return float(loss), dict(net.model.named_parameters()), optimizer
 
 
-def parallel_phase(device, db, queries, gnd, path, reference, clahe,
+def joint_step(network, start, batch, chain, optimizer,
+               param_sharding=None, mesh=None):
+    """One step of the joint N/D composition ``network`` from its member
+    weights ``start`` on ``batch`` (``(tuples, targets)`` of uint8
+    images) through the device chain ``chain``, with the optimizer section
+    ``optimizer`` (an alternation, the embedder's null), in float32,
+    through ``TrainStep`` on ``mesh`` (ZeRO with ``param_sharding``).
+    Returns the loss, the translator's parameters and BatchNorm running
+    statistics, and the optimizer."""
+    from mdir_tpu_torch.learning.train_step import TrainStep
+    from mdir_tpu_torch.optim.criteria import initialize_criterion
+    from mdir_tpu_torch.optim.optimizers import initialize_optimizer
+
+    for name, weights in start.items():
+        network.networks[name].model.load_state_dict(weights)
+    optimizer = initialize_optimizer(network, copy.deepcopy(optimizer))
+    step = TrainStep(network, initialize_criterion(
+        {"loss": "contrastive", "margin": 0.7, "eps": 1e-6}),
+        device_chain=chain, compute_dtype="float32",
+        param_sharding=param_sharding, mesh=mesh)
+    if param_sharding == "zero":
+        optimizer.shard_state(mesh)
+    network.train()
+    optimizer.zero_grad()
+    loss, _ = step.gradients(*batch)
+    optimizer.step()
+    if network.device.type == "cuda":
+        torch.cuda.synchronize()
+    model = network.networks["translate"].model
+    return (float(loss),
+            {k: v.detach().clone() for k, v in model.named_parameters()},
+            {k: v.clone() for k, v in model.named_buffers()
+             if k.endswith(("running_mean", "running_var"))}, optimizer)
+
+
+def joint_start(network):
+    """Each member's weights, to start every step from."""
+    return {name: {k: v.clone() for k, v in
+                   network.networks[name].model.state_dict().items()}
+            for name in network.sequence}
+
+
+def whole_batch_steps(mesh, joint, clahe, lab_trilinear, pooling_kernel):
+    """Phase 17's whole-batch route: phase 15's joint N/D net (the one of
+    its alternating steps, at the weights they left) on its first batch,
+    a single-card, a DP and a ZeRO step at
+    world 1 (adam on the translator through the alternation, the embedder
+    frozen, float32, cuDNN deterministic): losses, translator parameters and
+    BatchNorm statistics 0.0 apart, the alternation's gathered state dict
+    bit-equal to the single card's; then the DP step through the lab CLAHE
+    chain, its three kernels launched inside the step and its first
+    bucket's chain bit-equal to plain. Returns each step's launches."""
+    import contextlib
+
+    from mdir_tpu_torch.data.transforms import initialize_transforms
+    from mdir_tpu_torch.learning import train_step
+    from mdir_tpu_torch.ops.preprocess import chain_from_transform
+
+    t0 = time.perf_counter()
+    network = joint["network"]
+    start = joint_start(network)
+    images, _ = joint["batch"]
+    plain, lab_clahe = (chain_from_transform(initialize_transforms(
+        transform, joint["mean_std"]))
+        for transform in (PLAIN_TRANSFORM, CLAHE_TRANSFORM))
+    launches, steps, chain_in = {}, {}, []
+    make_chain = train_step.make_bucketed_chain
+
+    def first_bucket(chain):
+        fn = make_chain(chain)
+
+        def recorded(batch, aux):
+            if not chain_in:
+                chain_in.append((batch.clone(),
+                                 {k: v.clone() for k, v in aux.items()}))
+            return fn(batch, aux)
+        return recorded
+
+    cudnn = torch.backends.cudnn
+    flags = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        for tag, chain, sharding, on in (
+                ("joint_single_step", plain, None, None),
+                ("joint_dp_step", plain, None, mesh),
+                ("joint_zero_step", plain, "zero", mesh),
+                ("joint_dp_clahe_step", lab_clahe, None, mesh)):
+            pooling_kernel.reset_launches()
+            lab_trilinear.reset_launches()
+            clahe.reset_launches()
+            t = time.perf_counter()
+            with mock.patch.object(train_step, "make_bucketed_chain",
+                                   first_bucket) if chain is lab_clahe \
+                    else contextlib.nullcontext():
+                steps[tag] = joint_step(network, start, joint["batch"],
+                                        chain, joint_optimizer(), sharding,
+                                        on)
+            launches[tag] = kernel_counts(clahe, lab_trilinear,
+                                          pooling_kernel)
+            say("parallel", "%s (%d tuples of %d, %d px): loss %.6f, %.2f "
+                "s, launches %s" % (tag, len(images), len(images[0]),
+                                    JOINT_SIDE, steps[tag][0],
+                                    time.perf_counter() - t, launches[tag]))
+    finally:
+        cudnn.deterministic, cudnn.benchmark = flags
+    single = steps["joint_single_step"]
+    for tag in ("joint_dp_step", "joint_zero_step"):
+        loss, params, stats, _ = steps[tag]
+        check(loss == single[0], (tag, "loss vs single card", loss,
+                                  single[0]))
+        for name, ref in list(single[1].items()) + list(single[2].items()):
+            check(torch.equal((params if name in params else stats)[name],
+                              ref), (tag, "vs single card", name))
+    check(steps["joint_zero_step"][3].optimizers[0].mesh is mesh,
+          "the alternation's translator optimizer sharded")
+    check(equal_trees(steps["joint_zero_step"][3].state_dict(),
+                      single[3].state_dict()),
+          "the alternation's ZeRO state_dict vs the single card's")
+    say("parallel", "joint N/D DP and ZeRO steps at world 1: losses, %d "
+        "translator tensors and %d BatchNorm statistics 0.0 from the single "
+        "card's; the alternation's gathered state_dict bit-equal"
+        % (len(single[1]), len(single[2])))
+    # the lab CLAHE DP step: its kernels ran in the step, its first bucket's
+    # chain against plain
+    loss, params, stats, _ = steps["joint_dp_clahe_step"]
+    counted = launches["joint_dp_clahe_step"]
+    check(all(counted[name] > 0 for name in
+              ("lab_n", "clahe_tile_luts", "clahe_interp"))
+          and counted["gem_l2n"] == 0,
+          ("the chain kernels in the lab CLAHE step", counted))
+    check(np.isfinite(loss) and all(torch.isfinite(v).all() for v in
+                                    list(params.values())
+                                    + list(stats.values())),
+          ("lab CLAHE step finite", loss))
+    check(len(chain_in) == 1, ("the recorded bucket", len(chain_in)))
+    batch, aux = chain_in[0]
+    grid = lab_clahe.clahe_params[1]
+    check_equal(lab_trilinear.lab_n(batch), lab_trilinear.lab_n_plain(batch),
+                ("lab_n", "joint step"))
+    clahe_against_plain(clahe, lab_trilinear.lab_l_u8(batch), aux, grid,
+                        ("joint step", tuple(batch.shape)))
+    say("parallel", "lab CLAHE joint DP step: loss %.6f; its bucket %s: "
+        "lab_n, clahe_tile_luts and clahe_interp bit-equal to plain; the "
+        "whole-batch steps %.1f s" % (loss, tuple(batch.shape),
+                                      time.perf_counter() - t0))
+    return launches
+
+
+def equal_trees(a, b):
+    """Whether two nested dicts/lists of tensors and values are equal, the
+    tensors bit for bit."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            equal_trees(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return type(a) is type(b) and len(a) == len(b) and all(
+            equal_trees(x, y) for x, y in zip(a, b))
+    if torch.is_tensor(a):
+        return torch.is_tensor(b) and a.shape == b.shape \
+            and torch.equal(a, b.to(a.device))
+    return a == b
+
+
+def parallel_phase(device, db, queries, gnd, path, reference, joint, clahe,
                    lab_trilinear, pooling_kernel, gem_l2n_plain, smi):
     """Phase 17: several cards on ``torch.distributed``, at world 1 on
     NCCL (the one card): the validate stage's ``CirDatasetAp`` with
     ``parallel: {data: 1}`` on phase 7's net and images, sharded ranking,
     a single-card, a data-parallel and a ZeRO step from phase 9's weights
     on its batch (cuDNN deterministic, so that they compare bit for bit),
-    and ``dryrun_multicard(1, "cuda")`` in the same group. Returns the
+    the whole-batch steps of phase 15's joint N/D net on its batch
+    (``whole_batch_steps``; ``joint`` is phase 15's), and
+    ``dryrun_multicard(1, "cuda")`` in the same group. Returns the
     launches of its runs."""
     import shutil
 
@@ -3745,7 +3922,10 @@ def parallel_phase(device, db, queries, gnd, path, reference, clahe,
         say("parallel", "ZeRO state_dict (gathered) equal to the single "
             "card's: %d parameters' moments and steps" % len(single))
         del steps
-        # 5. the dry run, sharing this process's group of one
+        joint_launches = whole_batch_steps(mesh, joint, clahe,
+                                           lab_trilinear, pooling_kernel)
+        launches.update(joint_launches)
+        # 6. the dry run, sharing this process's group of one
         t = time.perf_counter()
         lines = dryrun_multicard(1, "cuda")
         losses = [float(m) for line in lines
@@ -4017,7 +4197,8 @@ def main():
                               gem_l2n_plain, gen, smi)
     # 17. several cards on torch.distributed, a world of one on NCCL
     parallel = parallel_phase(device, db, queries, gnd, path,
-                              trained["bf16"]["first_step"], clahe,
+                              trained["bf16"]["first_step"],
+                              image_train["joint_step"], clahe,
                               lab_trilinear, pooling_kernel, gem_l2n_plain,
                               smi)
     sources = {"lab_n": ("mdir_tpu_torch/csrc/lab_n.cu",

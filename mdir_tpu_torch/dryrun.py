@@ -13,11 +13,15 @@ data-parallel contrastive step of a ``<architecture>``-GeM, ranking over
 a database whose size n does not divide, a data-parallel step through the
 lab CLAHE device chain, and a ZeRO step of an AlexNet-GeM. The other
 functions here are parts a launched rank can run alone: sharded
-descriptors of a network's state, sharded ranks, and adam or sgd steps of
-a network's state under data parallelism or ZeRO; ``in_turn`` runs several
+descriptors of a network's state, sharded ranks, and steps of a network's
+state under data parallelism or ZeRO (a per-tuple net, or a whole-batch one:
+a composition under an optimizer alternation, a U-Net on image pairs);
+``in_turn`` runs several
 parts (or stages, which take ``device`` too) in one launch. Every part
 takes the rank's ``device`` as a keyword.
 """
+import copy
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -103,42 +107,58 @@ def in_turn(calls, *, device):
     return [fn(*args, device=device) for fn, args in calls]
 
 
+def _named_models(network):
+    """(prefix, model) of each member: a composition's under
+    ``<member>.``, a single net's bare."""
+    if hasattr(network, "sequence"):
+        return [(name + ".", network.networks[name].model)
+                for name in network.sequence]
+    return [("", network.model)]
+
+
 def train_steps(state, batches, optimizer, optimizer_state=None, *,
-                device):
+                device, criterion=CRITERION, chain=None):
     """Steps of the network of checkpoint ``state`` over the world, one a
-    ``(tuples, targets)`` batch, with the optimizer section ``optimizer``
-    (ZeRO when the network's runtime says ``param_sharding: zero``),
-    started from ``optimizer_state`` if given. The gradients are the
-    batch's sums. Returns the losses, the first batch's gradients summed
-    over the world, and the model's and the optimizer's state dicts, on
-    the CPU."""
+    ``(images, targets)`` batch (tuples, or image pairs), with the
+    optimizer section ``optimizer`` (ZeRO when the network's runtime says
+    ``param_sharding: zero``; a composition's ``composition`` section
+    freezes a member whose section is null) and the criterion section
+    ``criterion``, uint8 images through the device chain ``chain`` when
+    given, started from ``optimizer_state`` if given. The gradients are
+    the batch's sums. Returns the losses, the first batch's gradients
+    summed over the world, the model's state dict (with live BatchNorm's
+    running statistics; a composition's members' under ``<member>.``) and
+    the optimizer's, on the CPU."""
     network = initialize_network(None, device, state).train()
     mesh = _world_mesh(device)
-    step = TrainStep(network, initialize_criterion(dict(CRITERION)),
-                     mesh=mesh)
-    opt = initialize_optimizer(network, dict(optimizer))
+    step = TrainStep(network, initialize_criterion(dict(criterion)),
+                     device_chain=chain, mesh=mesh)
+    opt = initialize_optimizer(network, copy.deepcopy(optimizer))
     if optimizer_state is not None:
         opt.load_state_dict(optimizer_state)
     if step.param_sharding == "zero":
         opt.shard_state(mesh)
+    models = _named_models(network)
     losses, grads = [], None
     for images, targets in batches:
         opt.zero_grad()
         loss, _ = step.gradients(images, targets)
         if grads is None:
-            grads = {name: p.grad.detach().clone() for name, p
-                     in network.model.named_parameters()
+            grads = {prefix + name: p.grad.detach().clone()
+                     for prefix, model in models
+                     for name, p in model.named_parameters()
                      if p.grad is not None}
             if step.param_sharding == "zero":  # the optimizer sums them
                 mesh.all_reduce(list(grads.values()))
         opt.step()
         losses.append(float(loss))
     return {"losses": losses, "grads": _to_cpu(grads),
-            "model": {k: v.cpu() for k, v
-                      in network.model.state_dict().items()},
+            "model": {prefix + k: v.cpu() for prefix, model in models
+                      for k, v in model.state_dict().items()},
             "optimizer": _to_cpu(opt.state_dict()),
-            "moment_shapes": [tuple(entry["exp_avg"].shape) for entry
-                              in opt.optimizer.state.values()
+            "moment_shapes": [tuple(entry["exp_avg"].shape)
+                              for member in getattr(opt, "optimizers", [opt])
+                              for entry in member.optimizer.state.values()
                               if "exp_avg" in entry]}
 
 

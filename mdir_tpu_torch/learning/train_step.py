@@ -49,17 +49,30 @@ the caller gives (``generator``); live BatchNorm moves its running
 statistics in the modules.
 
 **Over several cards** (``mesh``, ``parallel/mesh.py``; JAX
-``train_step.py:106-146, 247-263, 322-337``), on the per-tuple route only:
-each rank takes its contiguous share of the batch's tuples (the tuple count
-must divide by the world size, as the JAX step asserts for its batch), the
-mean reduction's weights count the whole batch's images, and the loss and
-the gradients are summed over the ranks (one all-reduce), so every rank
-holds the whole batch's gradients and the update is the single-card
+``train_step.py:106-146, 247-263, 322-337``) every rank holds the whole
+batch's gradients after the step, and the update is the single-card
 update. Under ``param_sharding: zero`` the gradients are left unreduced:
 the ZeRO optimizer (``optim/optimizers.py::Optimizer.shard_state``)
-reduce-scatters them. The whole-batch route over several ranks raises
-(ROADMAP item 7.3): JAX's BatchNorm statistics span the global batch, which
-needs a collective inside the forward pass.
+reduce-scatters them.
+
+* Per tuple, each rank takes its contiguous share of the batch's tuples
+  (the tuple count must divide by the world size, as the JAX step asserts
+  for its batch), the mean reduction's weights count the whole batch's
+  images, and the loss and the gradients are summed over the ranks (one
+  all-reduce).
+* The whole batch is padded into one bucket at the whole batch's extents,
+  as JAX pads it before putting it on its mesh, and each rank runs its
+  contiguous rows of it (the flattened image count must divide by the
+  world size, JAX's assertion; a rank's rows may cut a tuple), with the
+  CLAHE tile geometry of its own images. Live BatchNorm takes the global
+  batch's statistics (``models/layers.py::set_batchnorm_mesh``). The
+  members' outputs are gathered to every rank with only its own rows
+  carrying the graph (``Mesh.gather_live_rows``) and the criterion takes
+  the whole batch's (D x N columns, or NCHW images against the replicated
+  targets), so the loss is the whole batch's on every rank and is not
+  summed, while each rank's gradient is its share: the sum over the ranks
+  (one all-reduce) counts each image once. ``last_output`` is the whole
+  batch's output.
 
 Compute dtype (``ops/dtypes.py``; JAX ``train_step.py:39-100,268-299``): in
 bfloat16 only the trunk runs in bf16, from its float32 master parameters
@@ -82,7 +95,8 @@ import inspect
 import numpy as np
 import torch
 
-from ..models.layers import has_train_mode, set_dropout_generator
+from ..models.layers import (has_train_mode, set_batchnorm_mesh,
+                             set_dropout_generator)
 from ..models.trunks import apply_valid_mask
 from ..ops import dtypes as dtype_policy
 from ..ops.clahe import aux_to_device, clahe_bucket_aux
@@ -194,7 +208,8 @@ class TrainStep:
     ``compute_dtype`` "auto" takes the network runtime's; ``guard_reports``
     lists each guard run's loss gap, gradient cosine and verdict;
     ``generator`` is the Dropout masks' ``torch.Generator``; ``mesh`` shares
-    each batch's tuples out over its ranks.
+    each batch's tuples, or a whole-batch network's bucket rows, out over
+    its ranks.
     """
 
     def __init__(self, network, criterion, device_chain=None,
@@ -205,15 +220,11 @@ class TrainStep:
         self.network = network
         self.whole = whole_batch(network)
         self.mesh = mesh
-        if mesh is not None and mesh.size > 1 and self.whole:
-            raise NotImplementedError(
-                "data parallelism of a whole-batch network (a composition, "
-                "or live BatchNorm or Dropout) is not ported (ROADMAP item "
-                "7.3)")
         self.members = [network.networks[name] for name in network.sequence] \
             if hasattr(network, "sequence") else [network]
         for member in self.members:
             set_dropout_generator(member.model, generator)
+            set_batchnorm_mesh(member.model, mesh)
         self.criterion = criterion
         self.device_chain = device_chain
         self.chain_fn = make_bucketed_chain(device_chain) \
@@ -237,8 +248,8 @@ class TrainStep:
             if dtype is not None and guard else 0
         self.steps = 0
         self.guard_reports = []
-        #: the last whole-batch step's output (NCHW images of an image net),
-        #: for the epoch's image samples
+        #: the last whole-batch step's output, the whole batch's on every
+        #: rank (NCHW images of an image net), for the epoch's image samples
         self.last_output = None
 
     def chain(self, batch, valid):
@@ -288,9 +299,20 @@ class TrainStep:
         return total
 
     def whole_loss(self, batch, valid, targets):
-        """The criterion of one bucket through every member, with its graph
-        (JAX's whole-batch program)."""
+        """The criterion of the whole batch's bucket through every member,
+        with its graph (JAX's whole-batch program). On a mesh this rank
+        runs its rows of the bucket, and the criterion takes every rank's
+        outputs with only its own carrying the graph."""
         device = self.network.device
+        mesh = self.mesh if self.mesh is not None and self.mesh.collective \
+            else None
+        if mesh is not None:  # JAX asserts the same
+            if batch.shape[0] % mesh.size:
+                raise ValueError("batch size %d not divisible by %d devices"
+                                 % (batch.shape[0], mesh.size))
+            rows = mesh.rows(batch.shape[0])
+            batch = batch[rows]
+            valid = None if valid is None else valid[rows]
         x = torch.from_numpy(batch).to(device)
         valid_t = None if valid is None \
             else torch.from_numpy(valid).to(device)
@@ -302,14 +324,19 @@ class TrainStep:
         for member in self.members:
             model = member.model
             model.train(not member.frozen)
-            if "pooling" in model.meta:
-                x = model(x, valid_t if single else None).to(torch.float32).T
-            else:
-                x = model(x)
+            descriptors = "pooling" in model.meta
+            x = model(x, valid_t if single else None).to(torch.float32) \
+                if descriptors else model(x)
+        if mesh is not None:
+            x = mesh.gather_live_rows(x)
+        if descriptors:
+            x = x.T
         self.last_output = x.detach()
         return self.criterion(x, as_targets(targets, device))
 
     def _whole_gradients(self, bucket):
+        """The bucket's loss; its gradients into ``.grad``, summed over the
+        mesh's ranks unless ZeRO reduce-scatters them."""
         params = [p for p in self.network.trainables() if p.requires_grad]
         loss = self.whole_loss(*bucket)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
@@ -317,6 +344,9 @@ class TrainStep:
             for p, g in zip(params, grads):
                 if g is not None:
                     p.grad = g if p.grad is None else p.grad + g
+        if self.mesh is not None and self.param_sharding != "zero":
+            self.mesh.all_reduce([p.grad for p in params
+                                  if p.grad is not None])
         return loss.detach()
 
     def gradients(self, batch_images, batch_targets):
@@ -326,10 +356,6 @@ class TrainStep:
         the ranks, so it must hold this batch's alone (``zero_grad``
         first)."""
         if self.whole or not is_tuple_batch(batch_images):
-            if self.mesh is not None and self.mesh.size > 1:
-                raise NotImplementedError(
-                    "data parallelism of a whole-batch step is not ported "
-                    "(ROADMAP item 7.3)")
             bucket, = prepare_batch(batch_images, batch_targets, whole=True)
             self.steps += 1
             return self._whole_gradients(bucket), len(batch_images)

@@ -13,10 +13,18 @@ mode it normalises with the batch's mean and biased variance over
 ``E[x^2] - E[x]^2`` clipped at 0, and moves both running statistics by
 ``momentum`` 0.9 toward them, the biased variance included (where
 ``torch.nn.BatchNorm2d`` keeps the unbiased one); in eval mode it uses the
-running statistics. ``Dropout`` is active in train mode and draws its mask
-from the ``torch.Generator`` in its ``generator`` attribute (the default
-generator when that is None), as flax's ``nn.Dropout`` draws from the
-step's key: kept cells are scaled by ``1 / (1 - p)``.
+running statistics. Pointed at a data mesh (``set_batchnorm_mesh``), its
+train-mode statistics are those of the global batch, as JAX's BatchNorm
+computes them over a batch sharded on its mesh: each rank sums x and x*x
+over its (N, H, W) and counts its cells, and the (2C + 1)-long vector goes
+through one differentiable all-reduce (``Mesh.sum_over_ranks``), so both
+running statistics move alike on every rank. Not
+``torch.nn.SyncBatchNorm``: it keeps the unbiased running variance with
+torch's opposite momentum, and runs on CUDA only. ``Dropout`` is active in
+train mode and draws its mask from the ``torch.Generator`` in its
+``generator`` attribute (the default generator when that is None), as
+flax's ``nn.Dropout`` draws from the step's key: kept cells are scaled by
+``1 / (1 - p)``.
 """
 import torch
 import torch.nn as nn
@@ -29,6 +37,10 @@ class BatchNorm2d(nn.Module):
     State names follow ``nn.BatchNorm2d`` (weight, bias, running_mean,
     running_var), so torchvision/cirtorch state dicts load as they are.
     """
+
+    #: the data mesh whose global batch the train-mode statistics span
+    #: (``set_batchnorm_mesh``); None: this process's batch
+    mesh = None
 
     def __init__(self, num_features, eps=1e-5, momentum=0.9):
         super().__init__()
@@ -44,9 +56,13 @@ class BatchNorm2d(nn.Module):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, training=False,
                                 eps=self.eps)
-        dims = (0, 2, 3)
-        mean = x.mean(dims)
-        var = torch.clamp((x * x).mean(dims) - mean * mean, min=0)
+        dims, channels = (0, 2, 3), x.shape[1]
+        sums = torch.cat([x.sum(dims), (x * x).sum(dims),
+                          x.new_full((1,), x.numel() // channels)])
+        if self.mesh is not None:
+            sums = self.mesh.sum_over_ranks(sums)
+        mean = sums[:channels] / sums[-1]
+        var = torch.clamp(sums[channels:-1] / sums[-1] - mean * mean, min=0)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(m).add_((1 - m) * mean.detach())
@@ -87,6 +103,14 @@ def has_train_mode(model):
     return any(type(m) is BatchNorm2d
                or (isinstance(m, nn.Dropout) and m.p > 0)
                for m in model.modules())
+
+
+def set_batchnorm_mesh(model, mesh):
+    """Point every live ``BatchNorm2d`` of ``model`` at ``mesh`` (None: the
+    statistics of this process's batch)."""
+    for module in model.modules():
+        if type(module) is BatchNorm2d:
+            module.mesh = mesh
 
 
 def set_dropout_generator(model, generator):

@@ -12,7 +12,11 @@ A ``SequentialNetwork`` trains under ``composition: alternation``
 member, a member whose optimizer is ``null`` frozen; with
 ``alternate_iteration`` N the members step in turn (in ``order``), N steps
 each, else all at once. Its state keeps each member's optimizer state and
-the ``alternation`` counters.
+the ``alternation`` counters. Under ZeRO it hands the mesh to each member's
+optimizer (``shard_state``, JAX ``optimizers.py:214-216``), so each keeps
+its own moments sharded and its state dict in the single-card format; a
+member that does not step in an iteration leaves its parameters as they
+are on every rank.
 
 Under ``param_sharding: zero`` over several cards (``shard_state``, JAX
 ``optimizers.py:88-107``) each rank keeps and updates only its slice of
@@ -220,6 +224,11 @@ class OptimizerAlternation:
         for opt in self.optimizers:
             opt.zero_grad()
 
+    def shard_state(self, mesh):
+        """Each member's moments sharded over ``mesh``'s ranks (ZeRO)."""
+        for opt in self.optimizers:
+            opt.shard_state(mesh)
+
     def active_names(self):
         """Members whose optimizer steps at the next ``step``."""
         if self.alternate_iteration:
@@ -243,6 +252,8 @@ class OptimizerAlternation:
             opt.set_lr_factor(factor)
 
     def state_dict(self):
+        """Each member's single-card state dict (under ZeRO a collective:
+        every rank calls it) and the counters."""
         state = {name: opt.state_dict()
                  for name, opt in zip(self.names, self.optimizers)}
         state["alternation"] = {"iteration": self.current_iteration,

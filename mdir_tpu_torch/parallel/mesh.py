@@ -11,6 +11,12 @@ between CPU processes) and calls them itself:
 * batch sharding is a contiguous slice of rows per rank (``rows``), and a
   sharded result comes back whole on every rank (``all_gather_rows``), as
   JAX's global array does;
+* inside a differentiated forward pass, ``sum_over_ranks`` sums one flat
+  tensor over the ranks with the sum over ranks again as its backward (a
+  synchronised BatchNorm's statistics), and ``gather_live_rows`` stacks
+  every rank's rows with only this rank's own slice carrying the graph
+  (a criterion of the whole batch on every rank: summing the ranks'
+  gradients then counts each row once);
 * ``zero_dim`` is JAX's ``zero_shardings`` rule for one tensor: its largest
   dimension divisible by the world size (the first of equal ones), or None
   when none divides (the tensor is then replicated);
@@ -41,6 +47,25 @@ _reduce_scatter = getattr(dist, "reduce_scatter_single", None) \
     or dist.reduce_scatter_tensor
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
 LAUNCH_TIMEOUT_S = 600
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """All-reduce (sum) whose backward is the all-reduce (sum) of the
+    incoming gradient: each rank's objective depends on the sum, so the
+    gradient of the sum of the ranks' objectives is the sum of theirs."""
+
+    @staticmethod
+    def forward(ctx, flat, group):
+        ctx.group = group
+        out = flat.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
 
 
 class Mesh:
@@ -85,6 +110,31 @@ class Mesh:
                              + tuple(full.shape[1:]))
         _reduce_scatter(out, full, group=self.group)
         return out
+
+    def sum_over_ranks(self, flat):
+        """The sum over ranks of one flat tensor, differentiable: the
+        backward sums the gradient over the ranks too (the identity
+        without a group)."""
+        if not self.collective:
+            return flat
+        return _SumOverRanks.apply(flat.contiguous(), self.group)
+
+    def gather_live_rows(self, local):
+        """Every rank's equal-sized ``local`` rows in rank order, only this
+        rank's slice carrying ``local``'s graph (the identity without a
+        group)."""
+        if not self.collective:
+            return local
+        full = self.all_gather_rows(local.detach())
+        share = local.shape[0]
+        return torch.cat([full[:self.rank * share], local,
+                          full[(self.rank + 1) * share:]])
+
+    def __deepcopy__(self, memo):
+        # a communicator handle, which cannot be copied: a copy of a model
+        # whose BatchNorm points at the mesh (a bf16 copy, ops/dtypes.py)
+        # shares it
+        return self
 
     def all_reduce(self, tensors):
         """Sum ``tensors`` over ranks in place, in one flat collective."""

@@ -3,12 +3,14 @@
 The card's machine has torch, numpy and scipy but no JAX and no PIL, cv2,
 yaml, msgpack, tensorboardX or matplotlib. A subprocess with those modules
 blocked imports every module of ``mdir_tpu_torch``, ``chip_smoke`` and
-``cards_check`` (the parallel mesh and the dry run among them), runs the lab CLAHE chain, trains (and resumes) a small net on
-in-memory images (its image samples written without PIL), trains a U-Net
-translator on in-memory image pairs through the six augmentations with loss
-validation, and then jointly with an embedder, and runs a U-Net
-composition's extraction and the eval entry's URL lookup, as the smoke
-does.
+``cards_check`` (the parallel mesh and the dry run among them), and the
+parts that the whole-batch parallel tests' ranks run
+(``tests/whole_batch_ranks.py``), runs the lab CLAHE chain, trains (and
+resumes) a small net on in-memory images (its image samples written
+without PIL), trains a U-Net translator on in-memory image pairs through
+the six augmentations with loss validation, and then jointly with an
+embedder, and runs a U-Net composition's extraction and the eval entry's
+URL lookup, as the smoke does.
 """
 import os
 import shutil
@@ -32,6 +34,8 @@ for module in pkgutil.walk_packages(mdir_tpu_torch.__path__,
     importlib.import_module(module.name)
 import chip_smoke
 import cards_check
+sys.path.insert(0, "tests")
+import whole_batch_ranks
 trained = {"mdir_tpu_torch.stages.train", "mdir_tpu_torch.learning.learning",
            "mdir_tpu_torch.learning.training",
            "mdir_tpu_torch.learning.epoch_iteration",

@@ -24,9 +24,13 @@ package's weights carried across (``models/convert.py``):
   1's part of each collective given): the extraction guard judges the
   gathered chunk and the train guard the summed batch, so rank 1's drift
   rejects bfloat16 although rank 0's own rows and gradients pass;
-* what raises: a mesh wider than the group or the cards, a whole-batch net
-  under ``parallel``, ZeRO with an optimizer that keeps no sharded state
-  (a one-member ``composition`` section) at world 2;
+* what raises: a mesh wider than the group or the cards, a whole batch
+  that does not split over the ranks, ZeRO with an optimizer that keeps no
+  sharded state; and what ran into those raises until whole-batch data
+  parallelism was ported: a composition's step at world 2 equals one
+  process's, and ZeRO under a one-member ``composition`` section (an
+  ``OptimizerAlternation``) trains an epoch at world 2 as one process
+  does;
 * ``dryrun_multicard(2, "cpu")`` on a ResNet18.
 
 Each world is one launch of ``dryrun.in_turn`` (the ranks run the package's
@@ -37,6 +41,7 @@ import copy
 import functools
 import os
 import pickle
+import types
 
 import numpy as np
 import pytest
@@ -291,6 +296,20 @@ def _train_scenario(directory, db, parallel=None, optimizer=SGD):
     }
 
 
+# a composition's optimizer section: sgd on the translator, the embedder
+# frozen
+COMPOSED_SGD = {"composition": {"type": "alternation",
+                                "alternate_iteration": None, "order": None},
+                "translate": dict(SGD), "embed": None}
+
+
+def _composed_batches():
+    """One batch of 2 tuples of 4 64x64 float images (4 a rank at world
+    2)."""
+    return [_tuple_batch(np.random.RandomState(7), n_tuples=2, tuple_len=4,
+                         hw=64)]
+
+
 def _extraction_calls(networks, images):
     return [(dryrun.sharded_descriptors,
              (networks[route][1], images, IMAGE_SIZE, ROUTES[route],
@@ -302,8 +321,9 @@ def launched(networks, images, ranking_inputs, adam_state, tmp_path_factory):
     """The launches, started before the first test on threads beside the
     JAX work: one a world (the three routes' descriptors and the ranks; at
     world 2 also the adam steps (DP, ZeRO, and ZeRO's first step alone),
-    one train-stage epoch and the dry run in place), and the dry run.
-    ``launched[key]()`` waits."""
+    one train-stage epoch, the dry run in place and a composition's step),
+    the dry run, and a train-stage epoch of ZeRO under an optimizer
+    alternation. ``launched[key]()`` waits."""
     import concurrent.futures
 
     root = tmp_path_factory.mktemp("parallel_train")
@@ -322,7 +342,9 @@ def launched(networks, images, ranking_inputs, adam_state, tmp_path_factory):
                                       ADAM)),
                 (train, (_train_scenario(root / "world2", db, world), ())),
                 (functools.partial(dryrun.dryrun_multicard,
-                                   architecture="resnet18"), (world,))]
+                                   architecture="resnet18"), (world,)),
+                (dryrun.train_steps, (networks["port_composed"].state_dict(),
+                                      _composed_batches(), COMPOSED_SGD))]
         futures[world] = pool.submit(launch, dryrun.in_turn, world, "cpu",
                                      args=(calls,), timeout=TIMEOUT_S)
     futures["dryrun"] = pool.submit(dryrun.dryrun_multicard, 2, "cpu",
@@ -358,18 +380,41 @@ def test_make_mesh_raises_beyond_the_group_or_the_cards():
                args=([],))
 
 
-def test_whole_batch_net_under_parallel_raises(networks):
-    """A composition (the whole-batch route) under ``parallel`` raises
-    before anything runs, naming its ROADMAP item."""
+def test_whole_batch_net_under_parallel_raises(networks, launched):
+    """A composition (the whole-batch route) under ``parallel`` raised
+    before anything ran until its data parallelism was ported; now its
+    step at world 2 (a translator trained, the embedder frozen) gives
+    every rank one process's loss and update, and only a whole batch whose
+    images do not split over the ranks raises, with JAX's message, before
+    any collective."""
     composed = networks["port_composed"]
+    runs = [rank[9] for rank in _ranks(launched, 2)]
+    one = dryrun.train_steps(composed.state_dict(), _composed_batches(),
+                             COMPOSED_SGD, device=torch.device("cpu"))
+    assert one["grads"] and all(k.startswith("translate.")
+                                for k in one["grads"])
+    for run in runs:
+        np.testing.assert_allclose(run["losses"], one["losses"], rtol=1e-5)
+        for name, value in one["grads"].items():
+            np.testing.assert_allclose(run["grads"][name].numpy(),
+                                       value.numpy(), rtol=1e-4, atol=1e-6,
+                                       err_msg=name)
+        for name, value in one["model"].items():
+            np.testing.assert_allclose(run["model"][name].numpy(),
+                                       value.numpy(), rtol=1e-4, atol=1e-7,
+                                       err_msg=name)
+        for name, value in runs[0]["model"].items():
+            assert torch.equal(run["model"][name], value), name
     criterion = initialize_criterion({"loss": "contrastive", "margin": 0.7,
                                       "eps": 1e-6})
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7.3"):
-        TrainStep(composed, criterion, mesh=Mesh(2, 0, "cpu"))
-    epoch = SupervisedEpoch(None, criterion, batch_average=False,
-                            fakebatch=True, parallel={"data": 2})
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7.3"):
-        epoch._mesh(composed)
+    step = TrainStep(composed, criterion, mesh=_RankZeroOfTwo())
+    assert step.whole
+    images, targets = _tuple_batch(np.random.RandomState(8), n_tuples=1,
+                                   tuple_len=4, hw=64)
+    images[0].append(images[0][0])
+    with pytest.raises(ValueError, match="batch size 5 not divisible by 2 "
+                       "devices"):
+        step.gradients(images, [np.append(targets[0], 0.0)])
 
 
 class _RankZeroOfTwo(Mesh):
@@ -472,14 +517,49 @@ def test_train_guard_judges_the_whole_batch(on_a_card):
 
 
 def test_zero_with_an_unsharded_optimizer_raises_at_world_two(launched):
-    """ZeRO leaves each rank's gradients to the optimizer to reduce; an
-    optimizer without ``shard_state`` would step on a rank's share alone,
-    so the epoch raises before its first step, naming its ROADMAP item."""
-    with pytest.raises(RuntimeError, match=(
-            r"NotImplementedError: param_sharding zero with a "
-            r"OptimizerAlternation optimizer is not ported \(ROADMAP item "
-            r"7\.3\)")):
-        launched["zero_alternation"]()
+    """ZeRO leaves each rank's gradients to the optimizer to reduce, so an
+    optimizer without ``shard_state`` would step on a rank's share alone:
+    the epoch raises before its first step. An ``OptimizerAlternation`` (a
+    one-member ``composition`` section) raised so until it took
+    ``shard_state``; now its epoch at world 2 equals one process's."""
+    root, db = launched["root"], launched["db"]
+    alternation = {"composition": {"type": "alternation",
+                                   "alternate_iteration": None,
+                                   "order": None}, "net": dict(SGD)}
+    single, = train(_train_scenario(root / "zero_alternation1", db,
+                                    optimizer=alternation), (),
+                    device="cpu")
+    metas = [rank[0] for rank in launched["zero_alternation"]()]
+    assert all(meta == metas[0] for meta in metas)
+    loss = "train/learning/loss:total_avg.4"
+    np.testing.assert_allclose(metas[0]["metrics"][loss],
+                               single["metrics"][loss], rtol=1e-5)
+    ckpts = [root / run / "epochs" / "net_epoch_01.ckpt"
+             for run in ("zero_alternation", "zero_alternation1")]
+    ours, theirs = (load_checkpoint_any(c)["model_state"] for c in ckpts)
+    for name, value in theirs.items():
+        np.testing.assert_allclose(ours[name].numpy(), value.numpy(),
+                                   rtol=1e-4, atol=1e-7, err_msg=name)
+
+    network = CirNetwork(initialize_model(dict(ALEXNET), device="cpu",
+                                          seed=0),
+                         CirNetwork.NetworkParams(model=dict(ALEXNET),
+                                                  runtime={
+                                                      "wrappers": "",
+                                                      "param_sharding":
+                                                          "zero"}))
+    epoch = SupervisedEpoch(types.SimpleNamespace(dataset=None),
+                            initialize_criterion({"loss": "contrastive",
+                                                  "margin": 0.7,
+                                                  "eps": 1e-6}),
+                            batch_average=False, fakebatch=True,
+                            parallel={"data": 2})
+    epoch.mesh = _RankZeroOfTwo()
+    images, targets = _tuple_batch(np.random.RandomState(9), n_tuples=2,
+                                   tuple_len=4, hw=64)
+    with pytest.raises(TypeError, match="needs an optimizer with "
+                       "shard_state, not a object"):
+        epoch._optimization_step(network, object(), images, targets)
 
 
 @pytest.mark.parametrize("n", [2, 3, 8])

@@ -66,8 +66,16 @@ Phases, one line each with its wall time:
      1 + 1 + 5 images a step, image size 1024) on an in-memory
      retrieval-SfM-style database (60 images: 30 clusters of two crops of
      one colour field, 20 query/positive pairs; query size 10, pool 50):
-     2 epochs of mining and steps with checkpoints, then resumed to 3.
-     Checks: the train step's chain bit-equal to the plain versions on
+     2 epochs of mining and steps with checkpoints, then resumed to 3,
+     through the device image cache (``device_cache_mb`` 512: the 60
+     images take about 129 MB on the card), the steps on the items mining
+     left in it (the mining -> train hand-off). Checks: the epoch-2 mining
+     hits the cache, its chunks launch gem_l2n and the three chain kernels,
+     and its query and pool descriptors are bit-equal to one uncached
+     re-extraction of the same images; one tuple's bucket assembled from
+     the cache is bit-equal to ``pad_image_batch`` of its loaded images;
+     the steps took cached items; the train step's chain bit-equal to the
+     plain versions on
      every tuple bucket; mining with the kernels and the plain versions
      within 1e-4, with the same negatives in both epochs (the smallest
      score gap the picks relied on is printed: seeded weights put it far
@@ -325,6 +333,7 @@ TRAIN_SHAPES = [(1024, 768), (768, 1024), (1000, 750), (683, 1024),
 TRAIN_QUERY_SIZE, TRAIN_POOL_SIZE, TRAIN_NEG_NUM, TRAIN_BATCH = 10, 50, 5, 5
 TRAIN_EPOCHS = 2  # then resumed to one more
 TRAIN_CHECK_SIDE = 256  # longer side of the card-against-CPU step
+TRAIN_CACHE_MB = 512  # phase 9's device image cache (about 129 MB of it used)
 LOSS_RTOL, GRAD_MIN_COSINE = 1e-4, 0.9999  # that step's tolerances
 CLAHE_DIM = 512
 CLAHE_TRANSFORM = "pil2np | apply_clahe:4:lab:8 | totensor | normalize"
@@ -1065,7 +1074,8 @@ def train_scenario(directory, db_pkl, epochs):
                         "image_size": IMAGE_SIZE, "neg_num": TRAIN_NEG_NUM,
                         "dataset_pkl": db_pkl, "image_dir": None,
                         "query_size": TRAIN_QUERY_SIZE,
-                        "pool_size": TRAIN_POOL_SIZE, "loader": smoke_loader},
+                        "pool_size": TRAIN_POOL_SIZE, "loader": smoke_loader,
+                        "device_cache_mb": TRAIN_CACHE_MB},
             "loader": {"batch_size": TRAIN_BATCH}}},
     }
 
@@ -1088,10 +1098,12 @@ def train_phase(device, clahe, lab_trilinear, pooling_kernel):
                                                      load_checkpoint_any)
     from mdir_tpu_torch.learning.epoch_iteration import SupervisedEpoch
     from mdir_tpu_torch.learning.network import initialize_network
-    from mdir_tpu_torch.learning.train_step import TrainStep
+    from mdir_tpu_torch.learning.train_step import TrainStep, pad_image_batch
     from mdir_tpu_torch.ops.clahe import aux_to_device, clahe_bucket_aux
     from mdir_tpu_torch.ops.pooling import gem_l2n_plain
     from mdir_tpu_torch.ops.preprocess import make_bucketed_chain
+    from mdir_tpu_torch.parallel.device_cache import (CachedImageRef,
+                                                      assemble, shared_cache)
     from mdir_tpu_torch.stages.train import train
 
     root = os.path.join(_build.BUILD_ROOT, "smoke", "train")
@@ -1108,6 +1120,7 @@ def train_phase(device, clahe, lab_trilinear, pooling_kernel):
     exp = os.path.join(root, "exp")
 
     minings, steps, chain_inputs, gem_in, saved = [], [], [], [], {}
+    cache_stats = lambda: shared_cache(device, TRAIN_CACHE_MB).stats()
     counts = functools.partial(kernel_counts, clahe, lab_trilinear,
                                pooling_kernel)
     mine, step, chain, save = (TuplesDataset.create_epoch_tuples,
@@ -1118,12 +1131,13 @@ def train_phase(device, clahe, lab_trilinear, pooling_kernel):
         record = {"dataset": dataset, "rng": np.random.get_state(),
                   "weights": {k: v.clone() for k, v
                               in network.model.state_dict().items()},
-                  "before": counts()}
+                  "before": counts(), "cache_before": cache_stats()}
         torch.cuda.synchronize()
         t = time.perf_counter()
         stats = mine(dataset, network)
         torch.cuda.synchronize()
         record.update(seconds=time.perf_counter() - t, after=counts(),
+                      cache_after=cache_stats(),
                       mined=dict(dataset.mined),
                       nidxs=[list(n) for n in dataset.nidxs])
         minings.append(record)
@@ -1134,7 +1148,10 @@ def train_phase(device, clahe, lab_trilinear, pooling_kernel):
         t = time.perf_counter()
         losses = step(epoch, network, optimizer, images, targets)
         torch.cuda.synchronize()
-        steps.append((epoch.epoch, time.perf_counter() - t, len(images)))
+        steps.append((epoch.epoch, time.perf_counter() - t, len(images),
+                      sum(isinstance(img, CachedImageRef)
+                          for tpl in images for img in tpl),
+                      sum(len(tpl) for tpl in images)))
         return losses
 
     def recorded_chain(train_step, batch, valid):
@@ -1175,8 +1192,8 @@ def train_phase(device, clahe, lab_trilinear, pooling_kernel):
     losses = meta["metrics"]["train/learning/loss:total_avg.4"]
     n_mined = TRAIN_QUERY_SIZE + TRAIN_POOL_SIZE
     for epoch, record in enumerate(minings):
-        step_s = [s for e, s, _ in steps if e == epoch]
-        tuples = sum(n for e, _, n in steps if e == epoch)
+        step_s = [s for e, s, *_ in steps if e == epoch]
+        tuples = sum(n for e, _, n, *_ in steps if e == epoch)
         say("train", "epoch %d: mining %d images in %d chunks %.2f s "
             "(%.1f images/s); %d steps %.3f s/step (%.1f tuples/s); loss "
             "%.6f" % (epoch, n_mined, record["after"]["gem_l2n"]
@@ -1202,6 +1219,34 @@ def train_phase(device, clahe, lab_trilinear, pooling_kernel):
           "the step's GeM runs under autograd (plain)")
 
     dataset = minings[-1]["dataset"]
+    # the device image cache: epoch 2's mining hit it and its cached chunks
+    # launched the four kernels; the steps took cached items, and one
+    # tuple's bucket assembled from the cache is the host-padded one
+    second = minings[1]
+    cached = {k: second["cache_after"][k] - second["cache_before"][k]
+              for k in ("hits", "misses", "entries")}
+    check(cached["hits"] > 0, ("epoch-2 mining hits the cache", cached))
+    cached_launches = {name: second["after"][name] - second["before"][name]
+                       for name in total}
+    check(all(n > 0 for n in cached_launches.values()),
+          ("kernels on the cached chunks", cached_launches))
+    step_refs = sum(r for *_, r, _ in steps)
+    check(step_refs > 0, "the steps took cached items")
+    refs, _ = dataset[0]
+    pixels, _ = pixel_items(dataset, [0])[0]
+    bucket, valid, _ = assemble(refs, 32)
+    host, host_valid = pad_image_batch(pixels, 32)
+    check(any(isinstance(img, CachedImageRef) for img in refs)
+          and torch.equal(bucket.cpu(), torch.from_numpy(host))
+          and np.array_equal(valid, host_valid),
+          ("hand-off bucket vs pad_image_batch", tuple(host.shape)))
+    say("train", "device image cache %s; epoch-2 mining %s, launches on its "
+        "cached chunks %s; the steps took %d of %d images from the cache; "
+        "tuple 0's hand-off bucket %s (%d of %d images cached) bit-equal to "
+        "pad_image_batch"
+        % (cache_stats(), cached, cached_launches, step_refs,
+           sum(n for *_, n in steps), tuple(host.shape),
+           sum(isinstance(img, CachedImageRef) for img in refs), len(refs)))
 
     def gates():
         """Gates 1, 2 and 4 (none timed), on the card beside the CPU's
@@ -1237,6 +1282,18 @@ def train_phase(device, clahe, lab_trilinear, pooling_kernel):
         # negatives are not implied by the tolerance (an open item until
         # published weights are in the repository)
         net = initialize_network(None, device, dict(saved[TRAIN_EPOCHS - 1]))
+        # epoch 2's cached mining against one uncached re-extraction
+        net.model.load_state_dict(second["weights"])
+        np.random.set_state(second["rng"])
+        with mock.patch.object(second["dataset"], "device_cache_mb", 0), \
+                contextlib.redirect_stdout(io.StringIO()):
+            mine(second["dataset"], net)
+        for key in ("qvecs", "poolvecs"):
+            check(np.array_equal(second["dataset"].mined[key],
+                                 second["mined"][key]),
+                  ("epoch-2 cached mining vs uncached", key))
+        say("train", "epoch-2 mining through the cache: query and pool "
+            "descriptors bit-equal to an uncached re-extraction")
         desc_err = score_err = 0.0
         gaps = []
         for epoch, record in enumerate(minings):
@@ -1300,6 +1357,8 @@ def train_phase(device, clahe, lab_trilinear, pooling_kernel):
     # 6. two steps under auto (bf16 trunk, the guard) beside float32
     bf16 = bf16_train_steps(device, dataset, saved[TRAIN_EPOCHS - 1])
     shutil.rmtree(root, ignore_errors=True)
+    # later phases' peak memory without phase 9's cached images
+    shared_cache(device, TRAIN_CACHE_MB).clear()
     return {"launches": launches, "gem_err": gem_err, "bf16": bf16}
 
 
@@ -1513,12 +1572,18 @@ def card_cpu_step(device, dataset, state, meanwhile):
     on the card beside the CPU's; returns what it returned."""
     from mdir_tpu_torch.learning.network import initialize_network
 
-    items = [dataset[i] for i in range(TRAIN_BATCH)]
+    items = pixel_items(dataset, range(TRAIN_BATCH))
     _, also = card_cpu_tuple_step(
         "train", device, lambda where: initialize_network(None, where, state),
         [[cut_to_side(img) for img in tpl] for tpl, _ in items],
         [target for _, target in items], dataset.device_chain, meanwhile)
     return also
+
+
+def pixel_items(dataset, indices):
+    """The dataset's tuples as loaded pixels, its device cache off."""
+    with mock.patch.object(dataset, "device_cache", None):
+        return [dataset[i] for i in indices]
 
 
 def tuple_step(where, make_network, images, targets, chain):
@@ -1700,8 +1765,8 @@ def bf16_train_steps(device, dataset, state):
 
     batches = []
     for b in range(2):
-        items = [dataset[i] for i in range(b * TRAIN_BATCH,
-                                           (b + 1) * TRAIN_BATCH)]
+        items = pixel_items(dataset, range(b * TRAIN_BATCH,
+                                           (b + 1) * TRAIN_BATCH))
         batches.append(([tpl for tpl, _ in items], [t for _, t in items]))
     runs = {}
     first = {}  # the float32 first step, phase 17's single-card reference

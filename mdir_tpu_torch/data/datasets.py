@@ -26,6 +26,16 @@ distinct clusters other than the query's on the host. The last mining's
 descriptors, scores, ranks and picked rank positions stay in ``mined``;
 ``selection_gap`` reads from them how close the picks came to a tie.
 
+With ``device_cache_mb`` (the dataset section's key; 0 is off, as the JAX
+package's unset ``MDIR_TPU_DEVICE_CACHE_MB``) mining extracts through the
+process's device image cache on the network's device
+(``parallel/device_cache.py::shared_cache``): from the second epoch the
+fixed query pool and the pool images it drew before are neither loaded nor
+copied again. When the training items are raw uint8 for the device chain
+(``item_transform``), ``__getitem__`` gives a ``CachedImageRef`` (its
+entry's tensor) for an image the cache holds, and the train step assembles
+its bucket from those entries on the card (the mining -> train hand-off, JAX ``datasets.py:233-319``).
+
 The database comes from the scenario: ``dataset_pkl`` (a local pickle; the
 port never downloads) and ``image_dir`` (default: ``ims`` beside the pickle,
 the layout cirtorch downloads). Images come through ``loader``: by default
@@ -43,6 +53,7 @@ import numpy as np
 import torch
 
 from ..ops.ranking import rank_database
+from ..parallel.device_cache import CachedImageRef, shared_cache
 from ..parallel.extract import descriptors_of
 from ..tools.utils import path_join, validate_hash
 from .images import ImagesFromList, as_uint8, imresize, pil_loader
@@ -145,7 +156,7 @@ class TuplesDataset:
 
     def __init__(self, name, mode, imsize=None, nnum=5, qsize=2000,
                  poolsize=20000, transform=None, loader=pil_loader,
-                 dataset_pkl=None, ims_root=None):
+                 dataset_pkl=None, ims_root=None, device_cache_mb=0):
         if mode not in ("train", "val"):
             raise RuntimeError("MODE should be either train or val, passed "
                                "as string")
@@ -182,9 +193,15 @@ class TuplesDataset:
         self.transform = transform
         self.loader = loader
         self.loader_params = {"drop_last": True, "collate_fn": collate_tuples}
+        self.device_cache_mb = device_cache_mb
+        self.device_cache = None  # the shared cache, taken when mining
 
     def __len__(self):
         return self.qsize
+
+    def cache_key(self, index):
+        """Image ``index``'s device cache key (JAX ``_feed_uint8``'s)."""
+        return "%s@%s" % (self.images[index], self.imsize)
 
     def load(self, index):
         """Image ``index`` loaded and shrunk to ``imsize``."""
@@ -198,9 +215,17 @@ class TuplesDataset:
             raise RuntimeError("Run dataset.prepare_epoch(network) to create "
                                "the epoch subset")
         transform = self.item_transform or self.transform
+        # the hand-off: raw device-chain items that the cache holds
+        cache = self.device_cache if self.item_transform is not None \
+            else None
         output = []
         for idx in [self.qidxs[index], self.pidxs[index]] \
                 + list(self.nidxs[index]):
+            key = self.cache_key(idx)
+            hit = cache.get(key) if cache is not None else None
+            if hit is not None:
+                output.append(CachedImageRef(key, hit[1], hit[0]))
+                continue
             img = self.load(idx)
             output.append(transform(img) if transform is not None else img)
         target = np.array([-1, 1] + [0] * len(self.nidxs[index]),
@@ -213,18 +238,23 @@ class TuplesDataset:
     def descriptors(self, network, indices):
         """(D, len(indices)) descriptors of images ``indices`` in eval mode,
         by the extraction path the network takes
-        (``parallel/extract.py::descriptors_of``)."""
-        def decoded(uint8):
-            for idx in indices:
-                img = self.load(idx)
+        (``parallel/extract.py::descriptors_of``), through the device
+        cache when there is one."""
+        def decoded(uint8, positions=None):
+            for p in range(len(indices)) if positions is None else positions:
+                img = self.load(indices[p])
                 yield as_uint8(img) if uint8 else self.transform(img)
 
-        return descriptors_of(network, decoded, len(indices), self.transform)
+        return descriptors_of(
+            network, decoded, len(indices), self.transform,
+            cache=self.device_cache,
+            keys=[self.cache_key(idx) for idx in indices])
 
     def create_epoch_tuples(self, network):
         """Re-mine hard negatives with the current network."""
         print(">> Creating tuples for an epoch of %s-%s..."
               % (self.name, self.mode))
+        self.device_cache = shared_cache(network.device, self.device_cache_mb)
         idxs2qpool = np.random.permutation(len(self.qpool))[:self.qsize]
         self.qidxs = [self.qpool[i] for i in idxs2qpool]
         self.pidxs = [self.ppool[i] for i in idxs2qpool]
@@ -239,6 +269,8 @@ class TuplesDataset:
         qvecs = self.descriptors(network, self.qidxs)  # (D, Q)
         print(">> Extracting descriptors for negative pool...")
         poolvecs = self.descriptors(network, idxs2images)  # (D, P)
+        if self.device_cache is not None:
+            print(">>>> Device image cache: %s" % self.device_cache.stats())
 
         print(">> Searching for hard negatives...")
         pool_t, q_t = (torch.from_numpy(np.ascontiguousarray(v)).to(
@@ -309,6 +341,7 @@ def cir_tuples_dataset(data, transform, **params):
         ims_root=params.pop("image_dir"),
         qsize=params.pop("query_size"),
         poolsize=params.pop("pool_size"),
+        device_cache_mb=params.pop("device_cache_mb", 0),
     )
     if params:
         raise ValueError("unknown CirTuples keys: %s" % sorted(params))

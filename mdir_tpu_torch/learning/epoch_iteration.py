@@ -28,7 +28,11 @@ or luv, ``tospace``) always runs on the card: the dataset's items are raw
 uint8 (``ops.preprocess.RawChainInput``) and the chain runs inside the step;
 mining extracts through the dataset's own transform. A transform that does
 not lower runs on the host in ``__getitem__``, its device transforms
-(``data.transforms.on_device``) on the network's device.
+(``data.transforms.on_device``) on the network's device. With the
+dataset's device image cache on, the raw items that mining left in it
+come as ``CachedImageRef``s and the step assembles them on the card
+(JAX ``:135-150``); an image sample of one is its entry cropped to its
+extent (JAX ``_materialize_ref``).
 
 With ``parallel: {data: N}`` (JAX ``:118-134``) the step is data-parallel
 over the N ranks of the process group (``learning/train_step.py``), on the
@@ -54,6 +58,7 @@ from ..data.datasets import TuplesDataset, initialize_dataset_loader
 from ..data.transforms import on_device
 from ..ops.preprocess import RawChainInput, chain_from_transform
 from ..optim.criteria import initialize_criterion
+from ..parallel.device_cache import CachedImageRef
 from ..parallel.mesh import make_mesh
 from ..tools.stats import StopWatch
 from ..tools.utils import get_dataset_params
@@ -179,6 +184,8 @@ class SupervisedEpoch:
         further channel as gray, the first three images' channels only."""
         if not isinstance(image, list):
             image = [image]
+        image = [img.pixels() if isinstance(img, CachedImageRef) else img
+                 for img in image]
         dbg = {}
         for j, img in enumerate(image):
             img = img.detach().cpu().numpy() if torch.is_tensor(img) \

@@ -604,9 +604,9 @@ def initialize_network(params, device="cuda", state=None, runtime=None):
     """Network from its scenario section ``params``, or from a checkpoint
     ``state`` (``{"net": payload}``; ``params`` then checks it)."""
     label = params.pop("type") if params else state["net"]["type"]
-    if label not in NETWORKS:
-        raise NotImplementedError("network %r is not ported yet (ROADMAP "
-                                  "§1.7)" % label)
+    if label not in NETWORKS:  # JAX: NETWORKS[label]
+        raise KeyError("unknown network type %r (the types are %s)"
+                       % (label, sorted(NETWORKS)))
     cls = NETWORKS[label]
     if state:
         return cls.initialize_from_state(state, device, params, runtime)

@@ -48,6 +48,14 @@ so a frozen embedder's weights get none. Dropout draws from the generator
 the caller gives (``generator``); live BatchNorm moves its running
 statistics in the modules.
 
+**From the device image cache** (the mining -> train hand-off, JAX
+``epoch_iteration.py:135-150``): a tuple batch whose items hold
+``CachedImageRef``s (``data/datasets.py``) is assembled on the card by
+``parallel/device_cache.py::assemble``, each tuple's bucket on the per-tuple
+route and the whole batch's on the whole-batch route, bit-equal to the
+host-padded bucket; the routes then take the device tensor where they take
+a numpy bucket otherwise.
+
 **Over several cards** (``mesh``, ``parallel/mesh.py``; JAX
 ``train_step.py:106-146, 247-263, 322-337``) every rank holds the whole
 batch's gradients after the step, and the update is the single-card
@@ -101,6 +109,7 @@ from ..models.trunks import apply_valid_mask
 from ..ops import dtypes as dtype_policy
 from ..ops.clahe import aux_to_device, clahe_bucket_aux
 from ..ops.preprocess import make_bucketed_chain
+from ..parallel.device_cache import CachedImageRef, assemble
 
 BUCKET_MULTIPLE = 32
 
@@ -129,23 +138,33 @@ def _labels(targets):
                            for t in targets])
 
 
+def _tuple_bucket(images, multiple):
+    """A tuple's (or a whole tuple batch's) images -> (bucket, extents):
+    on the host, or on the card when one is cached."""
+    if not any(isinstance(img, CachedImageRef) for img in images):
+        return pad_image_batch([np.asarray(img) for img in images], multiple)
+    return assemble(images, multiple)[:2]
+
+
 def prepare_batch(batch_images, batch_targets,
                   bucket_multiple=BUCKET_MULTIPLE, whole=False):
     """A loader's batch -> a list of (bucket, valid_hw, targets).
 
     A tuple batch gives one per tuple, or with ``whole`` one of all its
-    images. An image batch gives one (JAX ``prepare_batch``): a stacked NHWC
-    array as it is (``valid_hw`` None), a list of images stacked when they
-    share a shape and else padded; image targets (3-d or more) stacked or
-    padded alike, other targets concatenated.
+    images; a bucket holding ``CachedImageRef``s is assembled on the card
+    (a uint8 tensor there). An image batch gives one (JAX
+    ``prepare_batch``): a stacked NHWC array as it is (``valid_hw`` None), a
+    list of images stacked when they share a shape and else padded; image
+    targets (3-d or more) stacked or padded alike, other targets
+    concatenated.
     """
     if is_tuple_batch(batch_images):
         if whole:
-            return [pad_image_batch(
-                [np.asarray(img) for tpl in batch_images for img in tpl],
-                bucket_multiple) + (_labels(batch_targets),)]
-        return [pad_image_batch([np.asarray(img) for img in tpl],
-                                bucket_multiple) + (_labels([target]),)
+            return [_tuple_bucket([img for tpl in batch_images for img in tpl],
+                                  bucket_multiple)
+                    + (_labels(batch_targets),)]
+        return [_tuple_bucket(tpl, bucket_multiple)
+                + (_labels([target]),)
                 for tpl, target in zip(batch_images, batch_targets)]
     if not isinstance(batch_images, list):
         return [(np.asarray(batch_images), None, np.asarray(batch_targets))]
@@ -271,7 +290,7 @@ class TrainStep:
         """The criterion of one tuple's bucket, with its graph; with
         ``compute_dtype`` the trunk runs in it from cast master weights."""
         device = self.network.device
-        batch = torch.from_numpy(batch).to(device)
+        batch = torch.as_tensor(batch).to(device)  # numpy, or from the cache
         valid_t = torch.from_numpy(valid).to(device)
         x = self.chain(batch, valid)
         x = apply_valid_mask(x.permute(0, 3, 1, 2), valid_t).contiguous()
@@ -313,7 +332,7 @@ class TrainStep:
             rows = mesh.rows(batch.shape[0])
             batch = batch[rows]
             valid = None if valid is None else valid[rows]
-        x = torch.from_numpy(batch).to(device)
+        x = torch.as_tensor(batch).to(device)  # numpy, or from the cache
         valid_t = None if valid is None \
             else torch.from_numpy(valid).to(device)
         x = self.chain(x, valid).permute(0, 3, 1, 2)

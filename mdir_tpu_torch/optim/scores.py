@@ -13,6 +13,12 @@ of the process group (``parallel/mesh.py``) and the database's columns are
 ranked sharded (``rank_database_sharded``); every rank returns the same
 scores. A scenario built in Python may give a ``loader`` (a path to a PIL
 image or an (H, W, 3) uint8 array), as the datasets take.
+
+``device_cache_mb`` (JAX: ``MDIR_TPU_DEVICE_CACHE_MB``, ``scores.py:66-97``)
+extracts both sets through the process's device image cache on the
+network's device (``parallel/device_cache.py::shared_cache``, the one the
+training tuples use), so each later validation of the same images skips
+their loading; the sharded extractor of ``parallel`` takes no cache.
 """
 import os
 
@@ -24,6 +30,7 @@ from ..data.testdata import configdataset
 from ..data.transforms import initialize_transforms
 from ..ops.ranking import (compute_map_and_print, rank_database,
                            rank_database_sharded)
+from ..parallel.device_cache import shared_cache
 from ..parallel.extract import extract_vectors_network
 from ..parallel.mesh import make_mesh
 from ..tools.utils import get_data_root, path_join
@@ -41,6 +48,7 @@ class CirDatasetAp:
             raise ValueError("parallel takes data only, not %s"
                              % sorted(self.parallel))
         self.loader = params.pop("loader", None)
+        self.device_cache_mb = params.pop("device_cache_mb", 0)
 
         if isinstance(self.dataset, dict):
             assert self.dataset.keys() == {"name", "queries", "db", "imgdir"}
@@ -75,10 +83,11 @@ class CirDatasetAp:
     def __call__(self, network, logger=None):
         mesh = None if self.parallel is None \
             else make_mesh(self.parallel["data"], network.device)
+        cache = shared_cache(network.device, self.device_cache_mb)
         print(">> {}: database images...".format(self.dataset))
         vecs = extract_vectors_network(network, self.images, self.image_size,
                                        self.transforms, loader=self.loader,
-                                       mesh=mesh)
+                                       mesh=mesh, cache=cache)
         print(">> {}: query images...".format(self.dataset))
         if self.images == self.qimages and set(self.bbxs) == {None}:
             qvecs = vecs
@@ -86,7 +95,7 @@ class CirDatasetAp:
             qvecs = extract_vectors_network(network, self.qimages,
                                             self.image_size, self.transforms,
                                             bbxs=self.bbxs, loader=self.loader,
-                                            mesh=mesh)
+                                            mesh=mesh, cache=cache)
         print(">> {}: Evaluating...".format(self.dataset))
         vecs, qvecs = (torch.from_numpy(np.ascontiguousarray(v)).to(
             network.device) for v in (vecs, qvecs))

@@ -53,6 +53,17 @@ guard compares them, so every rank judges all the chunk's rows, as JAX's
 guard does, and reaches the same verdict. The exact per-image path runs
 whole on every rank.
 
+With a device image cache (``parallel/device_cache.py``; JAX
+``extract.py:476-660, 876-969``) the single-net batched path on one card
+and uint8 pixels (the plain-normalize and the device-chain routes) looks
+each image up by ``"<path>@<image_size>"`` before it loads it: a hit is
+added by its key (``add_cached``) and is neither loaded nor resized; a miss
+is loaded, padded to its bucket on the host and put in the cache when its
+chunk runs. The chunk is one ``torch.zeros`` on the device and one copy of
+each entry, the bytes a host-padded chunk holds, so the chain kernels and
+``gem_l2n`` get the same input. Images with bounding boxes, arrays, the
+composed path, float32 host transforms and a mesh take no cache.
+
 Everything runs synchronously on the calling thread: chunks are copied to the
 device and launched in order on the current stream, and ``finish`` copies
 the descriptors back. Nothing here starts a thread or a process.
@@ -192,12 +203,16 @@ class StreamingExtractor:
 
     With a ``mesh`` each chunk is sharded over its ranks (the module's
     docstring); every rank must add the same images.
+
+    ``cache`` (a ``DeviceImageCache``) is kept only for uint8 pixels and no
+    mesh (JAX ``extract.py:480``): ``add`` with a ``key`` puts the padded
+    image in it when its chunk runs, ``add_cached`` takes an entry.
     """
 
     def __init__(self, model, scales=(1,), msp=1.0, whiten=None,
                  normalize_mean_std=None, bucket_multiple=BUCKET_MULTIPLE,
                  max_batch=MAX_BATCH, device_chain=None, compute_dtype=None,
-                 dtype_guard=False, mesh=None):
+                 dtype_guard=False, mesh=None, cache=None):
         self.model = model
         self.device = model.device
         self.scales = list(scales)
@@ -236,22 +251,38 @@ class StreamingExtractor:
         self.compute_dtype = compute_dtype
         self.fast_model = model if compute_dtype is None \
             else dtype_policy.fast_copy(model, compute_dtype)
-        self.buffers = collections.defaultdict(list)  # bucket -> [(i, arr)]
+        self.cache = cache if mesh is None and self.host_dtype == np.uint8 \
+            else None
+        # bucket -> [(i, arr, key, (h, w))]; a cache hit's arr is its entry
+        self.buffers = collections.defaultdict(list)
         self.saw_full = set()  # buckets that ran a full-size chunk
         self.results = []  # (indices, device descriptors)
         self.chunks = 0  # chunks run, each one forward per scale
+        self.uploaded_bytes = 0  # pixel bytes copied from the host
 
     def _bucket(self, arr):
         return (_round_up(arr.shape[0], self.bucket_multiple),
                 _round_up(arr.shape[1], self.bucket_multiple))
 
-    def add(self, index, arr):
+    def add(self, index, arr, key=None):
+        """Image ``index``'s pixels; with a cache, ``key`` puts them in it."""
         arr = np.asarray(arr)
         if arr.dtype != self.host_dtype:
             raise ValueError("expected %s pixels, got %s"
                              % (np.dtype(self.host_dtype).name, arr.dtype))
-        bucket = self._bucket(arr)
-        self.buffers[bucket].append((index, arr))
+        if self.cache is None:
+            key = None
+        self._buffer(self._bucket(arr), (index, arr, key, arr.shape[:2]))
+
+    def add_cached(self, index, key):
+        """Image ``index`` from the cache entry ``key``: no host pixels, no
+        copy. The hit is taken (and its tensor held) now, so an eviction
+        before its chunk runs cannot lose it."""
+        entry, hw = self.cache.get(key)
+        self._buffer(tuple(entry.shape[:2]), (index, entry, key, hw))
+
+    def _buffer(self, bucket, item):
+        self.buffers[bucket].append(item)
         if len(self.buffers[bucket]) == self.max_batch:
             self._submit(bucket)
 
@@ -314,18 +345,24 @@ class StreamingExtractor:
             self.saw_full.add(bucket)
         else:
             bsz = _round_up(len(items), self.ranks)
-        indices = [i for i, _ in items]
+        indices = [item[0] for item in items]
         channels = items[0][1].shape[-1]
         if self.mesh is not None:  # this rank's rows, the rest padding
             rows = self.mesh.rows(bsz)
             items = items[rows]
             bsz = rows.stop - rows.start
-        shapes = [arr.shape[:2] for _, arr in items]
+        shapes = [hw for *_, hw in items]
         valid = np.ones((bsz, 2), np.int32)
-        batch = np.zeros((bsz,) + bucket + (channels,), self.host_dtype)
-        for bi, (_, arr) in enumerate(items):
-            valid[bi] = arr.shape[:2]
-            batch[bi, :arr.shape[0], :arr.shape[1]] = arr
+        for bi, hw in enumerate(shapes):
+            valid[bi] = hw
+        if self.cache is None:
+            batch = np.zeros((bsz,) + bucket + (channels,), self.host_dtype)
+            for bi, (_, arr, _, (h, w)) in enumerate(items):
+                batch[bi, :h, :w] = arr
+            self.uploaded_bytes += batch.nbytes
+            batch = torch.from_numpy(batch).to(self.device)
+        else:
+            batch = self._cached_chunk(items, bsz, bucket, channels)
         clahe_aux = None
         if self.device_chain is not None \
                 and self.device_chain.clahe_params is not None:
@@ -338,8 +375,7 @@ class StreamingExtractor:
         if self.region_pooling:
             boxes = [torch.from_numpy(b).to(self.device)
                      for b in self.region_boxes(shapes, bsz, bucket)]
-        args = (torch.from_numpy(batch).to(self.device),
-                torch.from_numpy(valid).to(self.device),
+        args = (batch, torch.from_numpy(valid).to(self.device),
                 self._grids(shapes, bsz, bucket), self.msp, self.P, self.m,
                 self.mean, self.std, self.chain_fn, clahe_aux, boxes)
         vecs = fused_forward(self.fast_model, self.scales, *args,
@@ -350,6 +386,23 @@ class StreamingExtractor:
             vecs = self.mesh.all_gather_rows(vecs)
         self.chunks += 1
         self.results.append((indices, vecs))
+
+    def _cached_chunk(self, items, bsz, bucket, channels):
+        """The chunk on the device from the cache (JAX
+        ``_assemble_cached``): zeros, then each hit's entry, each miss
+        padded on the host and put in the cache (or only copied, without
+        a key); filler rows stay zero."""
+        batch = torch.zeros((bsz,) + bucket + (channels,), dtype=torch.uint8,
+                            device=self.device)
+        for bi, (_, arr, key, (h, w)) in enumerate(items):
+            if not torch.is_tensor(arr):
+                padded = np.zeros(bucket + (channels,), np.uint8)
+                padded[:h, :w] = arr
+                self.uploaded_bytes += padded.nbytes
+                arr = self.cache.put(key, padded, (h, w)) \
+                    if key is not None else torch.from_numpy(padded)
+            batch[bi] = arr
+        return batch
 
     def _run_dtype_guard(self, fast, args, n):
         """The first chunk's float32 cross-check (JAX ``_run_dtype_guard``):
@@ -419,7 +472,8 @@ def extract_vectors_batched(model, arrays, scales=(1,), msp=1.0, whiten=None,
     return extractor.finish(n)
 
 
-def network_extractor(network, transform, batch_size=MAX_BATCH, mesh=None):
+def network_extractor(network, transform, batch_size=MAX_BATCH, mesh=None,
+                      cache=None):
     """A StreamingExtractor for ``network``'s eval wrappers and ``transform``.
 
     With a plain pil2np|totensor|normalize transform of 3 channels the
@@ -429,7 +483,8 @@ def network_extractor(network, transform, batch_size=MAX_BATCH, mesh=None):
     the float32 arrays that ``transform`` makes on the host, its device
     transforms pointed at the model's device (JAX ``extract.py:945-977``).
     The compute dtype and its guard come from the network's runtime
-    (``ops.dtypes.resolve_compute_dtype``); ``mesh`` shards its chunks.
+    (``ops.dtypes.resolve_compute_dtype``); ``mesh`` shards its chunks;
+    ``cache`` is kept on the uint8 routes without a mesh.
     """
     analyzed = _analyze_wrappers(network)
     if analyzed is None:
@@ -452,7 +507,7 @@ def network_extractor(network, transform, batch_size=MAX_BATCH, mesh=None):
         msp=CirMultiscaleAggregation.msp(model, len(scales)), whiten=whiten,
         max_batch=batch_size, normalize_mean_std=mean_std,
         device_chain=chain, compute_dtype=compute_dtype,
-        dtype_guard=dtype_guard, mesh=mesh)
+        dtype_guard=dtype_guard, mesh=mesh, cache=cache)
 
 
 def _plain_ingress(transform):
@@ -717,20 +772,23 @@ def _composable(network):
         and not meta["regional"]
 
 
-def _decoded(images, image_size, bbxs, transform, uint8, loader=None):
-    """The images as arrays: uint8 pixels, or the host transform's output.
-    ``images`` is a list of paths, decoded by ``loader`` (by default
-    ``data.images.pil_loader``), or of decoded (H, W, 3) uint8 arrays,
-    taken as they are (no crop, no resize)."""
+def _decoded(images, image_size, bbxs, transform, uint8, loader=None,
+             indices=None):
+    """The images (those of ``indices``, by default all) as arrays: uint8
+    pixels, or the host transform's output. ``images`` is a list of paths,
+    decoded by ``loader`` (by default ``data.images.pil_loader``), or of
+    decoded (H, W, 3) uint8 arrays, taken as they are (no crop, no
+    resize)."""
     from ..data.images import ImagesFromList, pil_loader
 
+    if indices is None:
+        indices = range(len(images))
     if len(images) and isinstance(images[0], np.ndarray):
-        return iter(images) if uint8 else (transform(a) for a in images)
+        return (images[i] if uint8 else transform(images[i]) for i in indices)
     dataset = ImagesFromList(images, imsize=image_size, bbxs=bbxs,
                              transform=None if uint8 else transform,
                              loader=loader or pil_loader)
-    return (dataset.uint8(i) if uint8 else dataset[i]
-            for i in range(len(dataset)))
+    return (dataset.uint8(i) if uint8 else dataset[i] for i in indices)
 
 
 def _composed_extractor(network, transform, max_batch=MAX_BATCH, mesh=None):
@@ -786,16 +844,23 @@ def extract_vectors_per_image(network, images, image_size, transform,
 
 
 def descriptors_of(network, decoded, n, transform, batch_size=MAX_BATCH,
-                   mesh=None):
+                   mesh=None, cache=None, keys=None):
     """(D, n) descriptors of n images through ``network`` in eval mode.
 
     A 2-net composition takes the composed batched path, a retrieval net
     with the whiten/multiscale wrappers the single-net batched path, and any
     other network the exact per-image path (JAX ``extract.py``'s
-    dispatch). ``decoded(uint8)`` yields the images in order: as (H, W, 3)
-    uint8 pixels when ``uint8`` is true, else through ``transform``.
-    ``mesh`` shards the batched paths' chunks; the per-image path runs
-    whole on every rank.
+    dispatch). ``decoded(uint8, indices=None)`` yields the images of
+    ``indices`` (by default all n) in order: as (H, W, 3) uint8 pixels when
+    ``uint8`` is true, else through ``transform``. ``mesh`` shards the
+    batched paths' chunks; the per-image path runs whole on every rank.
+
+    With a device image ``cache`` and the images' cache ``keys``, the
+    single-net path on uint8 pixels without a mesh takes each image whose
+    entry ``matches`` its bucketing from the cache, and decodes only the
+    others (JAX ``_feed_uint8``), which enter the cache. The images are
+    added in their order, hits among misses (JAX adds the hits first), so
+    the chunks are those of an uncached run.
     """
     network.eval()
     if _composable(network):
@@ -805,23 +870,38 @@ def descriptors_of(network, decoded, n, transform, batch_size=MAX_BATCH,
             or "pooling" not in network.model.meta:
         return _per_image_vectors(network, transform, decoded(False), n)
     else:
-        extractor = network_extractor(network, transform, batch_size, mesh)
+        extractor = network_extractor(network, transform, batch_size, mesh,
+                                      cache)
         uint8 = extractor.host_dtype == np.uint8
+        if extractor.cache is not None and keys is not None:
+            for i, key in enumerate(keys):
+                if extractor.cache.matches(key, extractor.bucket_multiple):
+                    extractor.add_cached(i, key)
+                else:
+                    arr, = decoded(True, [i])
+                    extractor.add(i, arr, key=key)
+            return extractor.finish(n)
     return _extracted(extractor, decoded(uint8), n)
 
 
 def extract_vectors_network(network, images, image_size, transform,
                             bbxs=None, batch_size=MAX_BATCH, loader=None,
-                            mesh=None):
+                            mesh=None, cache=None):
     """(D, N) descriptors of image files (or uint8 HWC arrays) through
     ``network`` by ``descriptors_of``'s dispatch, sharded over ``mesh``.
     Files are decoded here by ``loader`` (by default PIL), cropped to their
-    bounding box and shrunk to ``image_size`` on their longer side.
+    bounding box and shrunk to ``image_size`` on their longer side. A device
+    image ``cache`` is consulted before the loader, keyed by
+    ``"<path>@<image_size>"``, for files without bounding boxes.
     """
+    keys = None
+    if cache is not None and bbxs is None and len(images) \
+            and not isinstance(images[0], np.ndarray):
+        keys = ["%s@%s" % (path, image_size) for path in images]
     return descriptors_of(
-        network, lambda uint8: _decoded(images, image_size, bbxs, transform,
-                                        uint8, loader),
-        len(images), transform, batch_size, mesh)
+        network, lambda uint8, indices=None: _decoded(
+            images, image_size, bbxs, transform, uint8, loader, indices),
+        len(images), transform, batch_size, mesh, cache, keys)
 
 
 @torch.no_grad()

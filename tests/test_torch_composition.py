@@ -518,3 +518,17 @@ def test_composition_with_a_photometric_step_matches_jax(networks,
                                  jax_initialize_transforms(dsl, MEAN_STD))
     assert ours.shape == theirs.shape == (256, len(image_files))
     np.testing.assert_allclose(ours, theirs, rtol=RTOL, atol=ATOL)
+
+
+def test_unknown_network_type_raises_key_error_as_jax():
+    """An unknown scenario network type: JAX's ``NETWORKS[label]`` raises
+    ``KeyError``, and so does the port, naming the type."""
+    from mdir_tpu.learning.network import \
+        initialize_network as jax_initialize_network
+
+    from mdir_tpu_torch.learning.network import initialize_network
+
+    for init in (jax_initialize_network,
+                 lambda params: initialize_network(params, device="cpu")):
+        with pytest.raises(KeyError, match="NoSuchNetwork"):
+            init({"type": "NoSuchNetwork"})

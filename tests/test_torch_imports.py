@@ -2,15 +2,17 @@
 
 The card's machine has torch, numpy and scipy but no JAX and no PIL, cv2,
 yaml, msgpack, tensorboardX or matplotlib. A subprocess with those modules
-blocked imports every module of ``mdir_tpu_torch``, ``chip_smoke`` and
-``cards_check`` (the parallel mesh and the dry run among them), and the
+blocked imports every module of ``mdir_tpu_torch``, ``chip_smoke``,
+``cards_check`` and ``trace_check`` (the parallel mesh and the dry run
+among them), and the
 parts that the whole-batch parallel tests' ranks run
 (``tests/whole_batch_ranks.py``), runs the lab CLAHE chain, trains (and
 resumes) a small net on in-memory images (its image samples written
 without PIL), trains a U-Net translator on in-memory image pairs through
 the six augmentations with loss validation, and then jointly with an
 embedder, and runs a U-Net composition's extraction and the eval entry's
-URL lookup, as the smoke does.
+URL lookup, as the smoke does, and the device image cache's hand-off and
+the profiling hooks on the CPU.
 """
 import os
 import shutil
@@ -34,6 +36,7 @@ for module in pkgutil.walk_packages(mdir_tpu_torch.__path__,
     importlib.import_module(module.name)
 import chip_smoke
 import cards_check
+import trace_check
 sys.path.insert(0, "tests")
 import whole_batch_ranks
 trained = {"mdir_tpu_torch.stages.train", "mdir_tpu_torch.learning.learning",
@@ -55,7 +58,9 @@ trained = {"mdir_tpu_torch.stages.train", "mdir_tpu_torch.learning.learning",
            "mdir_tpu_torch.tools.htmlreport", "mdir_tpu_torch.tools.plots",
            "mdir_tpu_torch.tools.sysstats", "mdir_tpu_torch.tools.warmup"}
 assert trained <= set(sys.modules), trained - set(sys.modules)
-parallel = {"mdir_tpu_torch.parallel.mesh", "mdir_tpu_torch.dryrun"}
+parallel = {"mdir_tpu_torch.parallel.mesh", "mdir_tpu_torch.dryrun",
+            "mdir_tpu_torch.parallel.device_cache",
+            "mdir_tpu_torch.tools.profiling"}
 assert parallel <= set(sys.modules), parallel - set(sys.modules)
 loaded = sorted(name for name in sys.modules
                 if name.split(".")[0] in %r and sys.modules[name] is not None)
@@ -144,6 +149,55 @@ def test_cards_check_fails_without_a_card():
     result = _run(["cards_check.py"], ROOT)
     assert result.returncode != 0
     assert "no CUDA device" in result.stderr
+
+
+def test_trace_check_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the script runs there")
+    result = _run(["trace_check.py"], ROOT)
+    assert result.returncode != 0
+    assert "no CUDA device" in result.stderr
+
+
+RUN_CACHE = """
+import sys
+for name in %r:
+    sys.modules[name] = None
+import os, tempfile
+import numpy as np, torch
+from mdir_tpu_torch.parallel.device_cache import (CachedImageRef, assemble,
+                                                  shared_cache)
+from mdir_tpu_torch.tools.profiling import device_memory_profile, timed, trace
+
+cache = shared_cache("cpu", 1)
+assert cache is shared_cache("cpu", 0.5) and cache.budget_bytes == 10 ** 6
+img = np.random.RandomState(0).randint(0, 256, (40, 50, 3)).astype(np.uint8)
+padded = np.zeros((64, 64, 3), np.uint8)
+padded[:40, :50] = img
+entry = cache.put("a@64", padded, (40, 50))
+bucket, valid, miss = assemble([CachedImageRef("a@64", (40, 50), entry), img])
+assert torch.equal(bucket[0], bucket[1]) and miss == 64 * 64 * 3, miss
+with trace(tempfile.mkdtemp(), device="cpu") as prof:
+    (torch.ones(4) * 2).sum()
+assert os.path.getsize(prof.trace_path) > 0
+with timed("block", device="cpu"):
+    pass
+try:
+    device_memory_profile(device="cpu")
+except ValueError:
+    pass
+else:
+    raise AssertionError("a CPU memory profile")
+print("cached", cache.stats()["entries"])
+""" % (BLOCKED,)
+
+
+def test_device_cache_and_profiling_run_without_jax_cv2_pil():
+    """The device image cache's assembly and the torch.profiler hooks on
+    the CPU with JAX, the JAX package, cv2 and PIL blocked."""
+    result = _run(["-c", RUN_CACHE], ROOT)
+    assert result.returncode == 0, result.stderr[-3000:]
+    assert result.stdout.split("\n")[-2] == "cached 1"
 
 
 RUN_CHAIN = """
